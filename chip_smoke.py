@@ -8,14 +8,26 @@ the final line:
   1. device: the card's name and power limit, torch/CUDA versions;
   2. build: nvcc build of vqengine_tpu_torch/csrc/*.cu (ptxas lines);
   3. K3 palette kernel vs its plain PyTorch version at main-path shapes
-     (bitwise), both timed with CUDA events;
+     (bitwise), both timed with CUDA events, and torch.index_select on the
+     pre-padded table with pre-clamped ids as the library yardstick;
   4. K1 G-buffer raster kernel vs its plain version on the binned Sponza
      1920x1080 frame (tri_id/depth bitwise, gbuf within GBUF_TOL), timed;
-  5. HelloTriangle/HelloCube at 192x108 on the card against the goldens
-     (the bars of vqengine_tpu_torch/engine/goldens.py), and the
-     entry() frame on the card against the same frame on the CPU;
-  6. main path: 16 Sponza 1920x1080 frames (yaw sweep), overflow 0 and
-     finite output; ms/frame, peak memory, kernel launch counts.
+  5. K2 visibility raster kernel vs its plain version on Sponza's 8 caster
+     views at the full shadow budget (spot 1024^2, 6 point faces 1024^2,
+     directional 2048^2): pair demand, capacity and overflow per view;
+     depth and tri_id bitwise; timed;
+  6. HelloTriangle/HelloCube at 192x108 on the card against the goldens
+     (the bars of vqengine_tpu_torch/engine/goldens.py), the entry()
+     frame on the card against the same frame on the CPU, and a shadowed
+     Sponza frame (192x108, ESM, 64^2 maps rendered in the frame) on the
+     card against the CPU;
+  7. main paths, Sponza 1920x1080, each with the kernel launch counts set
+     to 0 just before it and read just after: (a) the engine's shadowed
+     path: precompute_shadow_maps (ESM, full budget; timed), then 16
+     frames of a yaw sweep with the cached maps; (b) 4 frames rendering
+     the maps in the frame (dynamic casters); (c) 4 PCF frames with cached
+     PCF maps; (d) 8 frames with shadows off (the first slice's path).
+     Overflow 0 and finite output; ms/frame, peak memory, launches.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -32,9 +44,20 @@ import torch
 
 W, H = 1920, 1080
 N_FRAMES = 16
+N_SIDE_FRAMES = 4       # maps in the frame; PCF
+N_UNSHADOWED = 8        # shadows off
 PROFILE_FRAMES = 3
+SMALL_W, SMALL_H = 192, 108
+SMALL_DIMS = (64, 64, 64)
 GBUF_TOL = 1e-6   # the kernel mirrors the plain version's rounding
 ENTRY_TOL = 3e-4  # card vs CPU ldr: the multichip bar of the reference
+# published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
+# tensor cores, and HBM3
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# flops per streamed record per pixel of the raster kernels: 4 planes x
+# (two products and two sums for the hi part, the same for lo, one add)
+RASTER_FLOPS = 36
 ROOT = Path(__file__).resolve().parent
 
 
@@ -68,6 +91,34 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the fp32 rate and the bytes over the memory rate."""
+    t_ops = ops / FP32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def raster_work(binned, width: int, height: int, out_bytes_px: int):
+    """(operations, bytes) of one raster kernel call on these inputs: every
+    record of every group a tile streams against each of the tile's
+    pixels inside the frame; the binned arrays read once, the outputs
+    written once."""
+    from vqengine_tpu_torch.ops import raster
+    seq, _ = raster._group_sequences(binned)
+    groups = (seq >= 0).sum(dim=1).double()
+    tiles = torch.arange(binned.tiles_x * binned.tiles_y, device=seq.device)
+    px_w = (width - (tiles % binned.tiles_x) * raster.TILE_W).clamp(max=raster.TILE_W)
+    px_h = (height - (tiles // binned.tiles_x) * raster.TILE_H).clamp(max=raster.TILE_H)
+    ops = RASTER_FLOPS * raster.GROUP * float((groups * (px_w * px_h)).sum())
+    inputs = (binned.pairs, binned.gpairs, binned.starts, binned.rstarts,
+              binned.gmeta)
+    nbytes = (sum(t.numel() * t.element_size() for t in inputs)
+              + width * height * out_bytes_px)
+    return ops, nbytes
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this script needs "
@@ -88,8 +139,9 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _backend.library()
     info = _backend.last_build
-    say(f"[build] {info.path.name}: nvcc {info.seconds:.1f} s, "
-        f"load {time.perf_counter() - t0:.1f} s")
+    say(f"[build] {info.path.name}: nvcc {info.seconds:.1f} s (one nvcc per "
+        f"source, in parallel, then the link), load "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in info.ptxas:
         say(f"[build] {line}")
 
@@ -118,8 +170,7 @@ def phase_palette(dev, sponza, renderer) -> dict:
     tl = scene.num_tris_live
     item3 = scene.tri_item[:tl].repeat_interleave(3).contiguous()
     n = consts.world.shape[0]
-    wvp = raster.dot_last(consts.view_proj[None, :, None, :],
-                           consts.world.transpose(1, 2)[:, None, :, :])
+    wvp = raster.world_view_proj(consts.view_proj, consts.world)
     cull = torch.rand((n, 2), generator=g).to(dev)
     shapes = {  # the four lookups of one main-path frame
         "materials[M,32] x 1080p": (mat_ids, scene.materials),
@@ -127,7 +178,7 @@ def phase_palette(dev, sponza, renderer) -> dict:
         "normal_mats[N,9] x 3T": (item3, consts.normal_mats.reshape(n, 9).contiguous()),
         "cull[N,2] x T": (scene.tri_item.contiguous(), cull),
     }
-    ms = plain_ms = err = 0.0
+    ms = plain_ms = lib_ms = err = nbytes = 0.0
     for name, (idx, table) in shapes.items():
         k = palette.palette_lookup(idx, table)
         p = palette.palette_lookup_plain(idx, table)
@@ -135,14 +186,31 @@ def phase_palette(dev, sponza, renderer) -> dict:
         if not bitwise_equal(k, p):
             fail(f"palette {name}: kernel != plain")
         err = max(err, float((k - p).abs().max()))
+        # the yardstick: one library gather on the pre-padded table with
+        # pre-clamped ids (the padding and the clamp are not timed)
+        padded = torch.zeros((palette.padded_rows(table.shape[0]), table.shape[1]),
+                             dtype=torch.float32, device=dev)
+        padded[:table.shape[0]] = table
+        ids = idx.reshape(-1).long().clamp(0, padded.shape[0] - 1)
+        if not bitwise_equal(torch.index_select(padded, 0, ids).reshape(k.shape), k):
+            fail(f"palette {name}: index_select != kernel")
         t_k = time_ms(lambda: palette.palette_lookup(idx, table), 50)
         t_p = time_ms(lambda: palette.palette_lookup_plain(idx, table), 50)
+        t_l = time_ms(lambda: torch.index_select(padded, 0, ids), 50)
+        b = idx.numel() * 4 + table.numel() * 4 + k.numel() * 4
         ms += t_k
         plain_ms += t_p
-        say(f"[K3] {name} ({idx.numel()} ids): bitwise equal; "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-    say(f"[K3] per frame (4 lookups): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        lib_ms += t_l
+        nbytes += b
+        say(f"[K3] {name} ({idx.numel()} ids): bitwise equal; kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, index_select {t_l:.4f} ms, "
+            f"bound {bound(0, b)['bound_ms']:.4f} ms (bytes)")
+    bd = bound(0, nbytes)
+    say(f"[K3] per frame (4 lookups): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": lib_ms}
 
 
 def sweep_camera(cam, i: int, base_yaw: float) -> None:
@@ -172,12 +240,74 @@ def phase_raster(dev, sponza, renderer) -> dict:
     t_k = time_ms(lambda: raster.rasterize_gbuf(binned, W, H), 20)
     t_p = time_ms(lambda: raster.rasterize_gbuf_plain(binned, W, H),
                   3, warmup=1)
+    # outputs: depth, tri_id and 16 G-buffer channels, 4 bytes each
+    bd = bound(*raster_work(binned, W, H, 4 * (2 + raster.GBUF_OUT)))
     say(f"[K1] Sponza {W}x{H}: {int(binned.demand)} pairs, "
         f"{binned.pairs.shape[0] // raster.GROUP} groups; tri_id and depth "
         f"bitwise equal, gbuf bitwise {bitwise_equal(g, g2)} "
-        f"(max |diff| {gerr}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        f"(max |diff| {gerr}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"max_abs_err": max(gerr, float((d - d2).abs().max())),
-            "ms": t_k, "plain_ms": t_p}
+            "ms": t_k, "plain_ms": t_p, **bd, "library_ms": None}
+
+
+def caster_views(consts) -> list:
+    """(name, light view-projection, size) of every caster view, in the
+    order render_shadow_maps renders them, at the full shadow budget."""
+    from vqengine_tpu_torch.ops import shadow
+    faces = ("+X", "-X", "+Y", "-Y", "+Z", "-Z")
+    views = [(f"spot{i}", consts.spot_caster_vps[i], shadow.SPOT_SHADOW_DIM)
+             for i in range(consts.spot_caster_vps.shape[0])]
+    views += [(f"point{i}{faces[f]}", consts.point_caster_vps[i, f],
+               shadow.POINT_SHADOW_DIM)
+              for i in range(consts.point_caster_vps.shape[0]) for f in range(6)]
+    views += [("dir", consts.dir_vp[0], shadow.DIRECTIONAL_SHADOW_DIM)
+              for _ in range(consts.dir_vp.shape[0])]
+    return views
+
+
+def phase_vis(dev, sponza, renderer) -> dict:
+    from vqengine_tpu_torch.ops import raster, shadow
+    consts = renderer.build_frame_constants(sponza.buffers, sponza.cameras[0],
+                                            sponza.lights)
+    scene = renderer.scene
+    views = caster_views(consts)
+    if len(views) != 8:
+        fail(f"Sponza has {len(views)} caster views, expected 8")
+    ms = err = ops = nbytes = 0.0
+    plain_ms = plain_view = None
+    for name, vp, size in views:
+        binned = shadow.bin_shadow_view(scene.positions, scene.item_of_vertex,
+                                        consts.world, vp, scene.indices, size)
+        d, i = raster.rasterize(binned, size, size)
+        d2, i2 = raster.rasterize_plain(binned, size, size)
+        torch.cuda.synchronize()
+        if not bitwise_equal(i, i2):
+            fail(f"K2 {name}: tri_id differs on {int((i != i2).sum())} texels")
+        if not bitwise_equal(d, d2):
+            fail(f"K2 {name}: depth differs: max {float((d - d2).abs().max())}")
+        err = max(err, float((d - d2).abs().max()))
+        t_k = time_ms(lambda: raster.rasterize(binned, size, size), 10)
+        if plain_ms is None:
+            plain_ms = time_ms(lambda: raster.rasterize_plain(binned, size, size),
+                               1, warmup=1)
+            plain_view = name
+        o, b = raster_work(binned, size, size, 8)     # depth + tri_id
+        ops += o
+        nbytes += b
+        ms += t_k
+        bd = bound(o, b)
+        say(f"[K2] {name} {size}^2: pair demand {int(binned.demand)}, capacity "
+            f"{binned.pair_cap}, overflow {binned.overflow.tolist()}; "
+            f"covered {float((i >= 0).float().mean()):.4f}; depth and tri_id "
+            f"bitwise equal; kernel {t_k:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    bd = bound(ops, nbytes)
+    say(f"[K2] per frame (8 views): kernel {ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); plain {plain_ms:.4f} ms "
+        f"on the {plain_view} view alone")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": None}
 
 
 def phase_goldens(dev) -> None:
@@ -199,8 +329,94 @@ def phase_goldens(dev) -> None:
         fail(f"entry() card vs CPU {diff} > {ENTRY_TOL}")
 
 
-def phase_main_path(dev, card: str, sponza, renderer) -> dict:
+def phase_shadow_card_vs_cpu(dev) -> None:
+    """Sponza at 192x108 with 64^2 ESM maps rendered in the frame, on the
+    card and on the CPU: ldr within ENTRY_TOL where tri_id agrees."""
+    from vqengine_tpu_torch.engine.scene_load import load_scene
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    s = load_scene("Sponza", SMALL_W, SMALL_H)
+    outs, maps = [], []
+    for d in (dev, torch.device("cpu")):
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+        out = r.render(c, SMALL_W, SMALL_H, shadow_dims=SMALL_DIMS)
+        outs.append({k: out[k].cpu() for k in ("ldr", "tri_id")})
+        maps.append({k: v.float().cpu()
+                     for k, v in r.precompute_shadow_maps(c, SMALL_DIMS).items()})
+    same = outs[0]["tri_id"] == outs[1]["tri_id"]
+    share = float(same.float().mean())
+    diff = float((outs[0]["ldr"] - outs[1]["ldr"])[same].abs().max())
+    texels = sum(m.numel() for m in maps[0].values())
+    equal = sum(int((maps[0][k] == maps[1][k]).sum()) for k in maps[0])
+    say(f"[shadow] Sponza {SMALL_W}x{SMALL_H}, ESM maps {SMALL_DIMS[0]}^2 "
+        f"rendered in the frame, card vs CPU: tri_id agrees on {share:.6f} "
+        f"of pixels, max |ldr diff| {diff} there; bf16 map texels equal "
+        f"{equal}/{texels}")
+    if share < 0.999 or not diff <= ENTRY_TOL:
+        fail(f"shadowed Sponza card vs CPU: share {share}, ldr diff {diff}")
+
+
+def run_frames(renderer, consts: list, card: str, label: str, **flags) -> dict:
+    """Render the frames (CUDA events around each) with the launch counts
+    set to 0 first; fail on overflow, non-finite output or a plain version
+    run on CUDA tensors. -> launches."""
     from vqengine_tpu_torch.ops import _backend
+    torch.cuda.synchronize()
+    _backend.reset_counts()
+    times, cover = [], []
+    for i, c in enumerate(consts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = renderer.render(c, W, H, **flags)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        ldr = out["ldr"]
+        if tuple(ldr.shape) != (H, W, 3) or not bool(torch.isfinite(ldr).all()):
+            fail(f"{label} frame {i}: ldr {tuple(ldr.shape)} not finite/shaped")
+        if int(out["overflow"].sum()):
+            fail(f"{label} frame {i}: overflow {out['overflow'].tolist()}")
+        cover.append(float((out["tri_id"] >= 0).float().mean()))
+    launches = dict(_backend.launches)
+    plain = dict(_backend.plain_cuda_calls)
+    ms = sorted(times)
+    say(f"[main] {label}: {len(ms)} frames, overflow 0, finite; covered-pixel "
+        f"share {min(cover):.4f}..{max(cover):.4f}; ms/frame (CUDA events, "
+        f"host syncs included): mean {sum(ms) / len(ms):.3f}, median "
+        f"{ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f} on {card}")
+    say(f"[main] {label}: kernel launches {launches}; plain-version calls on "
+        f"CUDA tensors {plain}")
+    if max(plain.values()) != 0:
+        fail(f"{label}: plain versions ran on CUDA tensors: {plain}")
+    return launches
+
+
+def precompute(renderer, consts, card: str, filter_mode: str):
+    """precompute_shadow_maps at the full budget, host-timed to the sync,
+    with the launch counts set to 0 first -> (maps, ms, launches)."""
+    from vqengine_tpu_torch.ops import _backend
+    torch.cuda.synchronize()
+    _backend.reset_counts()
+    t0 = time.perf_counter()
+    maps = renderer.precompute_shadow_maps(consts, filter_mode=filter_mode)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_backend.launches)
+    shapes = {k: (tuple(v.shape), str(v.dtype)) for k, v in maps.items()}
+    say(f"[main] precompute_shadow_maps ({filter_mode}, 8 views): {ms:.3f} ms "
+        f"(host clock to the sync) on {card}; maps {shapes}; launches "
+        f"{launches}")
+    if launches["raster_vis"] != 8:
+        fail(f"precompute launched raster_vis {launches['raster_vis']} times, "
+             f"expected 8")
+    if max(_backend.plain_cuda_calls.values()) != 0:
+        fail(f"precompute ran plain versions: {_backend.plain_cuda_calls}")
+    return maps, ms, launches
+
+
+def phase_main_path(dev, card: str, sponza, renderer) -> dict:
     cam = sponza.cameras[0]
     base_yaw = cam.yaw
     n_tris = sponza.buffers.indices.shape[0]
@@ -208,10 +424,9 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
         f"{len(sponza.buffers.items)} items, "
         f"{int(sponza.buffers.item_num_lods.max())} LODs, camera "
         f"{cam.position.tolist()}; the scene wants an environment "
-        f"({sponza.wants_environment}) and has shadow casters "
-        f"({sponza.has_shadow_casters}): rendered with enable_shadows=False "
-        f"and no environment (slices 2-3, IBL/sky and shadows, are not "
-        f"ported yet)")
+        f"({sponza.wants_environment}; IBL/sky are not ported yet, so frames "
+        f"render without one) and has shadow casters "
+        f"({sponza.has_shadow_casters})")
     if sponza.wants_textures:
         fail("Sponza wants textures, which are not ported yet")
     consts = []
@@ -219,42 +434,47 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
         sweep_camera(cam, i, base_yaw)
         consts.append(renderer.build_frame_constants(sponza.buffers, cam,
                                                      sponza.lights))
-    for c in consts[:2]:   # warm-up
+    cam.yaw = base_yaw
+    # warm-up: one precompute and two frames of each path
+    maps = renderer.precompute_shadow_maps(consts[0])
+    for c in consts[:2]:
+        renderer.render(c, W, H, shadow_maps=maps)
+        renderer.render(c, W, H)
         renderer.render(c, W, H, enable_shadows=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _backend.reset_counts()
-    times, cover = [], []
-    for i, c in enumerate(consts):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = renderer.render(c, W, H, enable_shadows=False)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-        ldr = out["ldr"]
-        if tuple(ldr.shape) != (H, W, 3) or not bool(torch.isfinite(ldr).all()):
-            fail(f"frame {i}: ldr {tuple(ldr.shape)} not finite/shaped")
-        if int(out["overflow"].sum()):
-            fail(f"frame {i}: overflow {out['overflow'].tolist()}")
-        cover.append(float((out["tri_id"] >= 0).float().mean()))
-    launches = dict(_backend.launches)
-    plain = dict(_backend.plain_cuda_calls)
+
+    # (a) the engine's shadowed path: static casters, maps cached once
+    maps, pre_ms, pre_launches = precompute(renderer, consts[0], card, "esm")
+    frames = run_frames(renderer, consts, card, "shadowed, cached ESM maps",
+                        shadow_maps=maps)
+    launches = {k: pre_launches[k] + frames[k] for k in frames}
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    ms = sorted(times)
-    say(f"[main] {N_FRAMES} frames, overflow 0, finite; covered-pixel share "
-        f"{min(cover):.4f}..{max(cover):.4f}; pair bucket {renderer.pair_bucket}")
-    say(f"[main] ms/frame (CUDA events, host syncs included): mean "
-        f"{sum(ms) / len(ms):.3f}, median {ms[len(ms) // 2]:.3f}, min "
-        f"{ms[0]:.3f}, max {ms[-1]:.3f} on {card}")
-    say(f"[main] peak device memory {peak:.1f} MiB")
-    say(f"[main] kernel launches {launches}; plain-version calls on CUDA "
-        f"tensors {plain}")
+    say(f"[main] shadowed path (precompute + {N_FRAMES} frames): launches "
+        f"{launches}; peak device memory {peak:.1f} MiB")
     if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {launches}")
-    if max(plain.values()) != 0:
-        fail(f"plain versions ran on CUDA tensors in the main path: {plain}")
+        fail(f"a kernel of the shadowed path never launched: {launches}")
+    if frames["raster_vis"] != 0:
+        fail(f"cached-map frames launched raster_vis {frames['raster_vis']} times")
+
+    # (b) dynamic casters: the maps rendered in every frame
+    side = consts[:N_SIDE_FRAMES]
+    inframe = run_frames(renderer, side, card, "shadowed, maps in the frame")
+    if inframe["raster_vis"] != 8 * len(side):
+        fail(f"in-frame path launched raster_vis {inframe['raster_vis']} "
+             f"times, expected {8 * len(side)}")
+
+    # (c) PCF with cached PCF maps
+    pcf_maps, _, _ = precompute(renderer, consts[0], card, "pcf")
+    run_frames(renderer, side, card, "shadowed, cached PCF maps",
+               shadow_filter="pcf", shadow_maps=pcf_maps)
+
+    # (d) the first slice's path: shadows off
+    off = run_frames(renderer, consts[:N_UNSHADOWED], card, "shadows off",
+                     enable_shadows=False)
+    if min(off["palette"], off["raster_gbuf"]) <= 0 or off["raster_vis"]:
+        fail(f"shadows-off path launches {off}")
+    say(f"[main] pair bucket {renderer.pair_bucket}")
     return launches
 
 
@@ -287,39 +507,50 @@ def idle_share(trace: dict, window_name: str) -> tuple[float, float, dict]:
 
 
 def phase_profile(sponza, renderer) -> None:
-    """Where a Sponza frame's time goes: CUDA-event time of each stage
-    (host syncs included), and the card's busy and idle time from a
-    torch.profiler trace of PROFILE_FRAMES frames, written to
+    """Where a shadowed Sponza frame's time goes: CUDA-event time of each
+    stage (host syncs included), and the card's busy and idle time from a
+    torch.profiler trace of PROFILE_FRAMES cached-map frames, written to
     traces/sponza_trace.json."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from vqengine_tpu_torch.ops import raster
+    from vqengine_tpu_torch.ops import raster, shadow
     from vqengine_tpu_torch.render import graph
     c = renderer.build_frame_constants(sponza.buffers, sponza.cameras[0],
                                        sponza.lights)
     scene = renderer.scene
+    maps = renderer.precompute_shadow_maps(c)
     setup, extra = graph.geometry_setup_gbuf(scene, c, W, H)
     binned = raster.bin_triangles(setup, W, H, extra=extra)
+    _, _, attrs, _ = graph.geometry_pass(scene, c, W, H)
+    wn = attrs["wnrm"]
+    n = wn / torch.clamp(shadow.norm3(wn), min=1e-9)[..., None]
+    whole = "whole frame (cached maps)"
     stages = {
         "front end (cull, LOD, transform, setup, attribute pack)":
             lambda: graph.geometry_setup_gbuf(scene, c, W, H),
         "binning (records, sort, segments)":
             lambda: raster.bin_triangles(setup, W, H, extra=extra),
         "K1 raster_gbuf": lambda: raster.rasterize_gbuf(binned, W, H),
-        "whole frame": lambda: renderer.render(c, W, H, enable_shadows=False),
+        "shadow pass (ESM tests)":
+            lambda: graph.shadow_pass(scene, c, attrs["wpos"], n,
+                                      shadow_maps=maps),
+        whole: lambda: renderer.render(c, W, H, shadow_maps=maps),
     }
     t = {name: time_ms(fn, 10) for name, fn in stages.items()}
-    rest = t["whole frame"] - sum(v for k, v in t.items() if k != "whole frame")
+    t_maps = time_ms(lambda: graph.render_shadow_maps(scene, c), 3, warmup=1)
+    rest = t[whole] - sum(v for k, v in t.items() if k != whole)
     for name, v in t.items():
         say(f"[profile] stage {v:8.3f} ms  {name}")
     say(f"[profile] stage {rest:8.3f} ms  tail (G-buffer unpack, K3 material "
         f"fetch, shading, tonemap)")
+    say(f"[profile] stage {t_maps:8.3f} ms  shadow maps (8 views; once per "
+        f"scene with cached maps, in every frame with dynamic casters)")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        renderer.render(c, W, H, enable_shadows=False)   # profiler warm-up
+        renderer.render(c, W, H, shadow_maps=maps)   # profiler warm-up
         torch.cuda.synchronize()
         with record_function("frames"):
             for _ in range(PROFILE_FRAMES):
-                renderer.render(c, W, H, enable_shadows=False)
+                renderer.render(c, W, H, shadow_maps=maps)
             torch.cuda.synchronize()
     path = ROOT / "traces" / "sponza_trace.json"
     path.parent.mkdir(exist_ok=True)
@@ -327,14 +558,22 @@ def phase_profile(sponza, renderer) -> None:
     window, busy, rows = idle_share(json.loads(path.read_text()), "frames")
     if busy <= 0:
         fail("the profiled frames ran nothing on the card")
-    n = sum(k for _, k in rows.values())
-    say(f"[profile] trace {path.relative_to(ROOT)}: {PROFILE_FRAMES} frames "
-        f"in {window:.3f} ms wall ({window / PROFILE_FRAMES:.3f} ms/frame, "
-        f"profiler on); card busy {busy / PROFILE_FRAMES:.3f} ms/frame in "
-        f"{n // PROFILE_FRAMES} device ops; idle share {1 - busy / window:.4f}")
-    for name, (ms, k) in sorted(rows.items(), key=lambda r: -r[1][0])[:15]:
+    k = sum(n for _, n in rows.values())
+    say(f"[profile] trace {path.relative_to(ROOT)}: {PROFILE_FRAMES} cached-map "
+        f"frames in {window:.3f} ms wall ({window / PROFILE_FRAMES:.3f} "
+        f"ms/frame, profiler on); card busy {busy / PROFILE_FRAMES:.3f} "
+        f"ms/frame in {k // PROFILE_FRAMES} device ops; idle share "
+        f"{1 - busy / window:.4f}")
+    for name, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0])[:15]:
         say(f"[profile] {ms / PROFILE_FRAMES:8.4f} ms/frame "
-            f"x{k // PROFILE_FRAMES:<4} {name[:100]}")
+            f"x{n // PROFILE_FRAMES:<4} {name[:100]}")
+
+
+def check_imports() -> None:
+    bad = sorted(m for m in sys.modules if m in ("jax", "vqengine_tpu")
+                 or m.startswith(("jax.", "vqengine_tpu.")))
+    if bad:
+        fail(f"the port imported {bad}")
 
 
 def main() -> None:
@@ -344,12 +583,13 @@ def main() -> None:
     sponza, renderer = load_sponza(dev)
     k3 = phase_palette(dev, sponza, renderer)
     k1 = phase_raster(dev, sponza, renderer)
+    k2 = phase_vis(dev, sponza, renderer)
     phase_goldens(dev)
+    phase_shadow_card_vs_cpu(dev)
     launches = phase_main_path(dev, card, sponza, renderer)
     if "--profile" in sys.argv[1:]:
         phase_profile(sponza, renderer)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    check_imports()
     kernels = [
         dict(name="palette", route="cuda",
              source="vqengine_tpu_torch/csrc/palette.cu",
@@ -359,6 +599,10 @@ def main() -> None:
              source="vqengine_tpu_torch/csrc/raster_gbuf.cu",
              replaces="vqengine_tpu/ops/raster.py:914",
              launches=launches["raster_gbuf"], **k1),
+        dict(name="raster_vis", route="cuda",
+             source="vqengine_tpu_torch/csrc/raster_vis.cu",
+             replaces="vqengine_tpu/ops/raster.py:693",
+             launches=launches["raster_vis"], **k2),
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,6 +1,12 @@
 """Parity of the port's forward main path (render_forward with default
-flags) with the JAX package: uploaded scene and frame constants, the
-entry() frame, the hello goldens, and a jax-free run of the port."""
+flags) with the JAX package: the port's own copies of the host modules
+(scene load, upload, frame constants), the entry() frame, the hello
+goldens, shadowed frames, and a run of the port that imports neither jax
+nor the JAX package.
+
+Each side loads its scenes with its own host modules: the port's Light
+objects carry the port's ELightType, so handing them to the JAX package
+(or the reverse) would drop every light."""
 import dataclasses
 import subprocess
 import sys
@@ -14,8 +20,14 @@ import torch
 import __graft_entry__ as graft
 from vqengine_tpu.render import graph as jg
 from vqengine_tpu.render.renderer import VQRendererTPU
+from vqengine_tpu.render.scene_buffers import assemble_scene
+from vqengine_tpu.scene.material import Material
+from vqengine_tpu.scene.mesh import build_builtin_meshes
+from vqengine_tpu.scene.scenes import augment_scene
+from vqengine_tpu.scene.serialization import (parse_material_file,
+                                              parse_scene_file)
 from vqengine_tpu_torch.engine.goldens import golden_scores, render_golden
-from vqengine_tpu_torch.engine.scene_load import load_scene
+from vqengine_tpu_torch.engine.scene_load import find_data_dirs, load_scene
 from vqengine_tpu_torch.entry import WIDTH, HEIGHT, entry, tiny_scene_numpy
 from vqengine_tpu_torch.render import graph as tg
 from vqengine_tpu_torch.render.renderer import (VQRendererTorch,
@@ -39,22 +51,55 @@ def bits(a) -> np.ndarray:
     return a.view(np.uint32) if a.dtype == np.float32 else a
 
 
+def jax_load_scene(name: str, width: int, height: int):
+    """The JAX package's own host load of Data/Levels/<name>.xml (the steps
+    of the port's load_scene and of the engine's _load_scene_host, on the
+    JAX package's modules) -> (SceneBuffers, cameras, lights)."""
+    data_dirs = find_data_dirs()
+    lib = {}
+    for d in reversed(data_dirs):
+        if (d / "Materials").is_dir():
+            for xml in sorted((d / "Materials").glob("*.xml")):
+                for mat, _ in parse_material_file(xml):
+                    lib[mat.name] = mat
+    for tid, mname in enumerate(("Checkerboard", "Checkerboard_Grayscale")):
+        m = Material(name=mname)
+        m.textures["diffuse"] = tid
+        lib[mname] = m
+    path = next(d / "Levels" / f"{name}.xml" for d in data_dirs
+                if (d / "Levels" / f"{name}.xml").is_file())
+    rep = parse_scene_file(path)
+    meshes = build_builtin_meshes()
+    augment_scene(rep.name, rep, lib, meshes, data_dirs=data_dirs)
+    buffers, cameras, lights = assemble_scene(rep, meshes, lib,
+                                              draw_light_gizmos=True)
+    for c in cameras:
+        c.aspect = width / max(1, height)
+    return buffers, cameras, lights
+
+
 def scene_inputs(name):
-    """-> (SceneBuffers, camera, lights, bucketize) as each caller of the
-    reference uploads them: entry() unbucketed, the engine bucketed."""
+    """-> (port (SceneBuffers, camera, lights), JAX (SceneBuffers, camera,
+    lights) or None, bucketize), each side loaded by its own modules, as
+    each caller of the reference uploads them: entry() unbucketed, the
+    engine bucketed. The JAX side of entry() is __graft_entry__'s."""
     if name == "entry":
-        return (*tiny_scene_numpy(), False)
+        return tiny_scene_numpy(), None, False
     s = load_scene(name, GOLDEN_W, GOLDEN_H)
-    return s.buffers, s.cameras[0], s.lights, True
+    b, cams, lights = jax_load_scene(name, GOLDEN_W, GOLDEN_H)
+    return (s.buffers, s.cameras[0], s.lights), (b, cams[0], lights), True
 
 
-SCENES = ["entry", "HelloCube", "Sponza"]
+SCENES = ["entry", "HelloCube", "Default", "Sponza"]
 
 
 @pytest.mark.parametrize("name", SCENES)
 def test_upload_scene_matches(name):
-    buffers, _, _, bucketize = scene_inputs(name)
-    ref = jg.upload_scene(buffers, bucketize=bucketize)
+    """The port's host modules (scene load + assembly) and upload give
+    arrays bitwise equal to the JAX package's own."""
+    (buffers, _, _), jax_side, bucketize = scene_inputs(name)
+    ref = (graft._tiny_scene_and_consts(WIDTH, HEIGHT)[0] if jax_side is None
+           else jg.upload_scene(jax_side[0], bucketize=bucketize))
     out = tg.upload_scene(buffers, CPU, bucketize=bucketize)
     assert out.num_tris_live == ref.num_tris_live
     for f in dataclasses.fields(out):
@@ -68,10 +113,15 @@ def test_upload_scene_matches(name):
 
 @pytest.mark.parametrize("name", SCENES)
 def test_frame_constants_match(name):
-    buffers, cam, lights, _ = scene_inputs(name)
-    ref = VQRendererTPU().build_frame_constants(buffers, cam, lights)
+    """Lights, casters and matrices: the port's frame_constants_numpy on its
+    own scene against the JAX package's build_frame_constants on its own."""
+    (buffers, cam, lights), jax_side, _ = scene_inputs(name)
+    ref = (graft._tiny_scene_and_consts(WIDTH, HEIGHT)[1] if jax_side is None
+           else VQRendererTPU().build_frame_constants(*jax_side))
     out = tg.frame_constants_from_numpy(
         frame_constants_numpy(buffers, cam, lights), CPU)
+    if name in ("Default", "Sponza"):
+        assert out.spot_casters.shape[0] == 1 and out.dir_vp.shape[0] == 1
     for f in dataclasses.fields(ref):
         a = getattr(out, f.name).numpy()
         b = np.asarray(getattr(ref, f.name))
@@ -112,19 +162,26 @@ _NO_JAX = """
 import sys, torch
 from vqengine_tpu_torch.engine.scene_load import load_scene
 from vqengine_tpu_torch.render.renderer import VQRendererTorch
-s = load_scene("HelloCube", 64, 64)
+s = load_scene("Sponza", 64, 64)
 r = VQRendererTorch(torch.device("cpu"))
 r.load_scene(s.buffers)
-out = r.render(r.build_frame_constants(s.buffers, s.cameras[0], s.lights), 64, 64)
+consts = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+assert consts.point_casters.shape[0] == 1 and consts.dir_vp.shape[0] == 1
+out = r.render(consts, 64, 64, shadow_dims=(32, 32, 32))
 assert tuple(out["ldr"].shape) == (64, 64, 3)
 assert bool(torch.isfinite(out["ldr"]).all())
 assert float((out["tri_id"] >= 0).float().mean()) > 0.05
-assert "jax" not in sys.modules, "the port imported jax"
+bad = [m for m in sys.modules
+       if m in ("jax", "vqengine_tpu") or m.startswith(("jax.", "vqengine_tpu."))]
+assert not bad, f"the port imported {bad}"
 print("ok")
 """
 
 
 def test_port_renders_without_jax():
+    """A shadowed Sponza frame (all three caster kinds, maps rendered in
+    the frame) in a fresh process: neither jax nor any module of the JAX
+    package gets imported."""
     res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
@@ -150,19 +207,31 @@ def test_unported_features_raise(entry_cpu, kw):
         tg.render_forward(scene, consts, WIDTH, HEIGHT, **kw)
 
 
-def test_shadow_casters_raise_unless_shadows_off():
-    """Sponza's lights all cast shadows: the default flags need the
-    shadow slice; with enable_shadows=False the frame renders (the
-    reference then drops the caster lights too)."""
-    s = load_scene("Sponza", 128, 64)
+@pytest.mark.parametrize("name", ["Default", "Sponza"])
+def test_shadowed_frame_renders(name):
+    """The default flags (shadows on, ESM) and PCF render both scenes;
+    maps from precompute_shadow_maps give the same frame as maps
+    rendered in the frame; shadows change the image, and with
+    enable_shadows=False the caster lights drop out, as in the
+    reference."""
+    w, h, dims = 128, 64, (16, 16, 16)
+    s = load_scene(name, w, h)
     r = VQRendererTorch(CPU)
     r.load_scene(s.buffers)
     consts = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
-    with pytest.raises(NotImplementedError):
-        r.render(consts, 128, 64)
-    out = r.render(consts, 128, 64, enable_shadows=False)
-    assert bool(torch.isfinite(out["ldr"]).all())
-    assert int(out["overflow"].sum()) == 0
+    frames = {}
+    for flt in ("esm", "pcf"):
+        out = r.render(consts, w, h, shadow_dims=dims, shadow_filter=flt)
+        maps = r.precompute_shadow_maps(consts, dims, flt)
+        cached = r.render(consts, w, h, shadow_dims=dims, shadow_filter=flt,
+                          shadow_maps=maps)
+        assert torch.equal(out["ldr"], cached["ldr"]), flt
+        assert bool(torch.isfinite(out["ldr"]).all())
+        assert int(out["overflow"].sum()) == 0
+        frames[flt] = out["ldr"]
+    off = r.render(consts, w, h, enable_shadows=False)["ldr"]
+    assert not torch.equal(frames["esm"], off)
+    assert not torch.equal(frames["pcf"], frames["esm"])
 
 
 def test_tessellation_raises(entry_cpu):

@@ -3,135 +3,38 @@
 // Replaces the Pallas kernel of vqengine_tpu/ops/raster.py
 // (_make_gbuf_kernel(None, bounded=False), launched by rasterize_gbuf).
 //
-// What it computes. One CTA per 16x128-pixel tile. The tile streams
-// groups of 128 records (32 f32 each, pair-major rows of the sorted pair
-// array) in the reference's order: global tier, tile-row tier, tile tier,
-// each segment rounded out to whole groups. Per record and pixel it
-// evaluates three edge planes and a depth plane; a pixel is covered when
-// b0, b1, b2 >= 0 and z >= 0, and a covered candidate wins only if
-// z < depth strictly (depth cleared to 1.0). So the first minimum in
-// stream order wins, exactly as the reference's per-group argmin followed
-// by a strict compare. After the stream, each pixel reads its winner's
-// rows 0-29 from global memory and resolves perspective barycentrics,
-// the bf16-packed normal/tangent pairs and uv, and the material, object
-// and item ids, writing depth, tri_id and 16 G-buffer channels straight
-// into [H, W] and [16, H, W] (ragged edge masked, background zeroed).
-//
-// Plane arithmetic. The reference's split evaluation (_plane_eval_dots)
-// is mirrored operation for operation: per record and tile, the plane
-// constants (ex/2, ey/2, ew + ex*x0 + ey*y0 [+ 2^-15 edge bias]) are split
-// into bf16 hi and lo parts (round to nearest even), and a pixel's value
-// is ((hx*X + hy*Y) + hw) + ((lx*X + ly*Y) + lw) with X = 2*lx+1 and
-// Y = 2*ly+1 tile-local. Each product is exact in f32; every operation is
-// an explicit _rn intrinsic and the file is built with -fmad=false, so
-// the result is bitwise equal to the plain PyTorch version. The resolve
-// rounds two multiply-adds as one (fma_f64), as the reference does on the
-// CPU, where its compiler contracts them.
+// What it computes. One CTA per 16x128-pixel tile streams groups of 128
+// records (32 f32 each, pair-major rows of the sorted pair array) and
+// keeps each pixel's nearest covering record (raster_common.cuh: stream
+// order, tie-break and the split plane arithmetic). After the stream,
+// each pixel reads its winner's rows 0-29 from global memory and resolves
+// perspective barycentrics, the bf16-packed normal/tangent pairs and uv,
+// and the material, object and item ids, writing depth, tri_id and 16
+// G-buffer channels straight into [H, W] and [16, H, W] (ragged edge
+// masked, background zeroed). The resolve rounds two multiply-adds as one
+// (fma_f64), as the reference does on the CPU, where its compiler
+// contracts them.
 //
 // Bound. Arithmetic: about 4 planes x 9 flops per record per pixel, over
 // every record of every group a tile streams (most of them do not cover
 // the pixel). Memory traffic is small (a group's 12 plane rows once per
 // tile, the winner's 30 rows once per pixel, the outputs once).
-// Design: the plane constants of a group are computed once per tile by
-// all 256 threads (each one record and two planes) into 12 KB of shared
-// memory, then every thread walks the 128 records for its 8 pixels (one
-// column, eight rows), with the column-dependent products hoisted out of
-// the row loop. No tensor cores, no TMA: simple first.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design: the shared tile stream, then the resolve in registers. No
+// tensor cores, no TMA: simple first.
+#include "raster_common.cuh"
 
 namespace {
 
-constexpr int TILE_W = 128;
-constexpr int TILE_H = 16;
-constexpr int GROUP = 128;
+using namespace vq_raster;
+
 constexpr int REC = 32;          // floats per record
 constexpr int GBUF_OUT = 16;
-constexpr int THREADS = 256;
-constexpr int ROWS = TILE_H * TILE_W / THREADS;   // pixels per thread
-constexpr int PLANE_CONSTS = 24;                  // 4 planes x (hi, lo) x 3
-constexpr float EDGE_BIAS = 3.0517578125e-05f;    // 2^-15
 constexpr float NRM_PACK_BIAS = 3.0f;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // a*b + c rounded as the plain version's _fma rounds it: the product is
 // exact in f64, then one f64 add and one rounding to f32.
 __device__ __forceinline__ float fma_f64(float a, float b, float c) {
   return __double2float_rn(__dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
-}
-
-// Stream groups [g0, g1) of `src`; winners from the global tier are
-// encoded as -2 - row, from the pair array as row (>= 0); -1 = none.
-__device__ __forceinline__ void stream_groups(
-    const float* __restrict__ src, int g0, int g1, bool global_tier,
-    float x0, float y0, float (*consts)[PLANE_CONSTS], int lx, int row0,
-    float* depth, int* win) {
-  const int t = threadIdx.x;
-  const float X = (float)(2 * lx + 1);
-  for (int g = g0; g < g1; ++g) {
-    __syncthreads();  // the previous group's constants are consumed
-    {
-      const int r = t % GROUP;
-      const float* rec = src + ((long long)g * GROUP + r) * REC;
-      for (int q = 0; q < 2; ++q) {
-        const int p = (t / GROUP) * 2 + q;
-        const float ex = rec[3 * p], ey = rec[3 * p + 1], ew = rec[3 * p + 2];
-        const float ex2 = __fmul_rn(ex, 0.5f);
-        const float ey2 = __fmul_rn(ey, 0.5f);
-        float ew2 = __fadd_rn(__fadd_rn(ew, __fmul_rn(ex, x0)),
-                              __fmul_rn(ey, y0));
-        if (p < 3) {
-          const float e = __fmul_rn(
-              __fadd_rn(__fadd_rn(__fmul_rn(fabsf(ex2), 2.0f * TILE_W),
-                                  __fmul_rn(fabsf(ey2), 2.0f * TILE_H)),
-                        fabsf(ew2)),
-              EDGE_BIAS);
-          ew2 = __fadd_rn(ew2, e);
-        }
-        float* c = consts[r] + 6 * p;
-        c[0] = bf16_round(ex2);
-        c[1] = bf16_round(ey2);
-        c[2] = bf16_round(ew2);
-        c[3] = bf16_round(__fsub_rn(ex2, c[0]));
-        c[4] = bf16_round(__fsub_rn(ey2, c[1]));
-        c[5] = bf16_round(__fsub_rn(ew2, c[2]));
-      }
-    }
-    __syncthreads();
-    for (int r = 0; r < GROUP; ++r) {
-      const float* c = consts[r];
-      float axh[4], axl[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        axh[p] = __fmul_rn(c[6 * p], X);
-        axl[p] = __fmul_rn(c[6 * p + 3], X);
-      }
-      const int row = g * GROUP + r;
-      const int id = global_tier ? -2 - row : row;
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float Y = (float)(2 * (row0 + i) + 1);
-        float b[4];
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const float hi = __fadd_rn(__fadd_rn(axh[p], __fmul_rn(c[6 * p + 1], Y)),
-                                     c[6 * p + 2]);
-          const float lo = __fadd_rn(__fadd_rn(axl[p], __fmul_rn(c[6 * p + 4], Y)),
-                                     c[6 * p + 5]);
-          b[p] = __fadd_rn(hi, lo);
-        }
-        const bool cover = b[0] >= 0.0f && b[1] >= 0.0f && b[2] >= 0.0f &&
-                           b[3] >= 0.0f;
-        if (cover && b[3] < depth[i]) {
-          depth[i] = b[3];
-          win[i] = id;
-        }
-      }
-    }
-  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -145,28 +48,14 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
                    float* __restrict__ gbuf_out) {
   __shared__ float consts[GROUP][PLANE_CONSTS];
   const int tx = blockIdx.x, ty = blockIdx.y;
-  const int tile = ty * tiles_x + tx;
   const int lx = threadIdx.x % TILE_W;
   const int row0 = (threadIdx.x / TILE_W) * ROWS;
   const float x0 = (float)(tx * TILE_W);
   const float y0 = (float)(ty * TILE_H);
-
   float depth[ROWS];
   int win[ROWS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    depth[i] = 1.0f;
-    win[i] = -1;
-  }
-  const int gcount = gmeta[0];
-  stream_groups(gpairs, 0, (gcount + GROUP - 1) / GROUP, true, x0, y0,
-                consts, lx, row0, depth, win);
-  stream_groups(pairs, rstarts[ty] / GROUP,
-                (rstarts[ty + 1] + GROUP - 1) / GROUP, false, x0, y0, consts,
-                lx, row0, depth, win);
-  stream_groups(pairs, starts[tile] / GROUP,
-                (starts[tile + 1] + GROUP - 1) / GROUP, false, x0, y0, consts,
-                lx, row0, depth, win);
+  stream_tile<REC>(pairs, gpairs, starts, rstarts, gmeta, tx, ty, tiles_x,
+                   consts, lx, row0, depth, win);
 
   const int x = tx * TILE_W + lx;
   if (x >= width) return;

@@ -13,10 +13,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vqengine_tpu.utils.image_io import read_png
-from vqengine_tpu.utils.ssim import ssim
-from vqengine_tpu_torch.engine.scene_load import load_scene
-from vqengine_tpu_torch.render.renderer import VQRendererTorch
+from ..render.renderer import VQRendererTorch
+from ..utils.image_io import read_png
+from ..utils.ssim import ssim
+from .scene_load import load_scene
 
 GOLDEN_DIR = Path(__file__).resolve().parent.parent.parent / "tests" / "goldens"
 WIDTH, HEIGHT = 192, 108

@@ -2,23 +2,23 @@
 XML parse, typed-scene augmentation and assembly into SceneBuffers.
 
 Counterpart of the host half of ``vqengine_tpu/engine/engine.py``
-(find_data_dirs, _load_material_lib, _load_scene_host). It uses only the
-JAX package's numpy host modules (scene, utils, render.scene_buffers), so
-it runs where jax is not installed. Textures and environment maps are not
-decoded: the result only says whether the scene wants them.
+(find_data_dirs, _load_material_lib, _load_scene_host), on the port's
+own copies of the JAX package's numpy host modules (scene, utils,
+render.scene_buffers), so it imports neither jax nor the JAX package.
+Textures and environment maps are not decoded: the result only says
+whether the scene wants them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
 
-from vqengine_tpu.render.scene_buffers import SceneBuffers, assemble_scene
-from vqengine_tpu.scene.material import Material
-from vqengine_tpu.scene.mesh import build_builtin_meshes
-from vqengine_tpu.scene.scenes import augment_scene
-from vqengine_tpu.scene.serialization import (parse_material_file,
-                                              parse_scene_file)
-from vqengine_tpu.utils import log
+from ..render.scene_buffers import SceneBuffers, assemble_scene
+from ..scene.material import Material
+from ..scene.mesh import build_builtin_meshes
+from ..scene.scenes import augment_scene
+from ..scene.serialization import parse_material_file, parse_scene_file
+from ..utils import log
 
 REPO_DATA = Path(__file__).resolve().parent.parent.parent / "Data"
 

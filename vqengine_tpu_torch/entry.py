@@ -9,14 +9,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vqengine_tpu.render.scene_buffers import DrawItem, build_scene_buffers
-from vqengine_tpu.scene import mesh as meshmod
-from vqengine_tpu.scene.camera import Camera, FCameraParameters
-from vqengine_tpu.scene.light import ELightType, Light
-from vqengine_tpu.scene.material import Material
-from vqengine_tpu.utils import math3d as m3
-
 from .render import graph
+from .render.scene_buffers import DrawItem, build_scene_buffers
+from .scene import mesh as meshmod
+from .scene.camera import Camera, FCameraParameters
+from .scene.light import ELightType, Light
+from .scene.material import Material
+from .utils import math3d as m3
 from .render.renderer import frame_constants_numpy
 
 WIDTH, HEIGHT = 256, 128

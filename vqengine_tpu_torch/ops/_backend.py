@@ -7,9 +7,10 @@ switches Pallas kernels to interpret mode off-TPU, the port's wrappers pick
 by the device of the tensor they are given: a CPU tensor runs the kernel's
 plain PyTorch version, a CUDA tensor launches the CUDA kernel (or raises).
 
-The kernels are compiled with ``nvcc`` into one shared library with a plain
-C interface on first use (never at import) and cached under ``_build/``
-next to the package, keyed by a hash of the sources and flags.
+The kernels are compiled with ``nvcc`` on first use (never at import),
+one ``nvcc`` per source, all started together, then linked into one
+shared library with a plain C interface, cached under ``_build/`` next to
+the package and keyed by a hash of the sources and flags.
 """
 from __future__ import annotations
 
@@ -31,14 +32,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-KERNELS = ("palette", "raster_gbuf")
+KERNELS = ("palette", "raster_gbuf", "raster_vis")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
-              # no FMA contraction: the raster kernel's plane arithmetic
-              # must round exactly like its plain PyTorch version
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              # no FMA contraction: the raster kernels' plane arithmetic
+              # must round exactly like their plain PyTorch versions
               "-fmad=false", "-Xptxas", "-v")
 
 # launches[name]: times the CUDA kernel `name` was launched by its wrapper.
@@ -78,8 +79,9 @@ def _nvcc() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile every ``csrc/*.cu`` into one shared library (cached by a
-    hash of the sources and flags)."""
+    """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
+    them into one shared library (cached by a hash of the sources and
+    flags)."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources + sorted(CSRC.glob("*.cuh")):
@@ -90,14 +92,27 @@ def build() -> BuildInfo:
         return BuildInfo(lib, 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [lib.with_name(f"{s.stem}.{os.getpid()}.o") for s in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    outs = [(p.communicate(), p.returncode) for p in procs]
+    for ((_, err), code), s in zip(outs, sources):
+        if code != 0:
+            raise RuntimeError(f"nvcc failed on {s.name} ({code}):\n{err}")
+    res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+    seconds = time.perf_counter() - t0
     os.replace(tmp, lib)
-    ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+    for o in objs:
+        o.unlink()
+    text = "\n".join(out + err for (out, err), _ in outs)
+    ptxas = [ln.strip() for ln in text.splitlines()
              if "ptxas info" in ln and ("registers" in ln or "Compiling" in ln
                                          or "bytes smem" in ln)]
     return BuildInfo(lib, seconds, ptxas)
@@ -108,6 +123,7 @@ _SIGNATURES = {
     "vq_palette_lookup": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "vq_raster_gbuf": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P, _P, _P, _P],
+    "vq_raster_vis": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,5 +1,5 @@
-"""Tile rasterizer: triangle setup, record packing, tile binning and the
-G-buffer raster (kernel K1).
+"""Tile rasterizer: triangle setup, record packing, tile binning, the
+G-buffer raster (kernel K1) and the visibility raster (kernel K2).
 
 Counterpart of ``vqengine_tpu/ops/raster.py``; the design is the same
 clipless homogeneous-edge rasterizer (see that module's docstring):
@@ -17,10 +17,11 @@ depth tie depends on it:
   pixel coordinates, +2^-15 edge bias), evaluated with the same order of
   additions.
 
-Only the non-MSAA, unbounded G-buffer variant is ported; the MSAA and
-depth-bounded variants and the visibility kernel (K2) are still to come.
-Records here are pair-major ``[P, 32]`` rows (the reference stores
-``[NG, 32, 128]`` lane blocks of the same values).
+Ported: the non-MSAA, unbounded G-buffer variant of K1 and the
+center-sample variant of K2 (the shadow-map raster); K1's MSAA and
+depth-bounded variants and K2's MSAA variant are still to come.
+Records here are pair-major ``[P, 32]`` (K1) or ``[P, 16]`` (K2) rows; the
+reference stores ``[NG, R, 128]`` lane blocks of the same values.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ GLOBAL_CAP = 512      # capacity of the (always empty) global tier
 BG_ID = -1
 NPX = TILE_H * TILE_W
 
+PAIR_ROWS = 16        # K2 record rows: e'0..2 (9) dp (3) id (1) pad (3)
 GBUF_ROWS = 32        # G-buffer record rows (layout in the reference)
 SEL_ROWS = 30         # rows read back for the winner's resolve
 GBUF_VATTR = 5        # per-vertex attr rows: packed nrm/tan(3) uv(2)
@@ -59,6 +61,31 @@ def dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for j in range(1, prod.shape[-1]):
         out = out + prod[..., j]
     return out
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a*b + c rounded once, as a fused multiply-add: the f32 product is
+    exact in f64, so only the f64 sum and the final f32 rounding remain
+    (equal to a true FMA except for rare double-rounding ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def matvec_fma(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[..., I, J] x [..., J] -> [..., I], rounded as XLA's CPU backend
+    rounds the reference's batched einsum "cij,cj->ci": a chain of fused
+    multiply-adds over j (_fma)."""
+    acc = m[..., 0] * v[..., None, 0]
+    for j in range(1, m.shape[-1]):
+        acc = _fma(m[..., j], v[..., None, j], acc)
+    return acc
+
+
+def world_view_proj(vp: torch.Tensor, world: torch.Tensor) -> torch.Tensor:
+    """vp [4, 4] x world [N, 4, 4] -> [N, 4, 4] (the reference's einsum
+    "ij,njk->nik"), the four products summed in pairs as XLA sums that
+    einsum on the CPU."""
+    t = [vp[None, :, j, None] * world[:, None, j, :] for j in range(4)]
+    return (t[0] + t[1]) + (t[2] + t[3])
 
 
 def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -83,7 +110,19 @@ def transform_clip_corners(corner_positions: torch.Tensor,
     m = palette_lookup(item3, mvps.reshape(n, 16).contiguous()).reshape(-1, 4, 4)
     p = torch.cat([corner_positions,
                    torch.ones_like(corner_positions[:, :1])], dim=1)
-    return matvec(m, p).reshape(t, 3, 4)
+    return matvec_fma(m, p).reshape(t, 3, 4)
+
+
+def transform_clip_instanced(positions: torch.Tensor,
+                             item_of_vertex: torch.Tensor,
+                             mvps: torch.Tensor) -> torch.Tensor:
+    """positions [V, 3], item_of_vertex [V] int32, mvps [N, 4, 4] ->
+    clip [V, 4]; the per-vertex matrix fetch is a palette lookup."""
+    n = mvps.shape[0]
+    m = palette_lookup(item_of_vertex,
+                       mvps.reshape(n, 16).contiguous()).reshape(-1, 4, 4)
+    p = torch.cat([positions, torch.ones_like(positions[:, :1])], dim=1)
+    return matvec_fma(m, p)
 
 
 @dataclass(frozen=True)
@@ -260,8 +299,8 @@ def pack_gbuf_extra_corners(corner_normals: torch.Tensor,
     item3 = tri_item.repeat_interleave(3)
     nm = palette_lookup(item3, normal_mats.reshape(n, 9).contiguous()
                         ).reshape(-1, 3, 3)
-    wnrm = matvec(nm, corner_normals)
-    wtan = matvec(nm, corner_tangents)
+    wnrm = matvec_fma(nm, corner_normals)
+    wtan = matvec_fma(nm, corner_tangents)
     packed_nt = pack_bf16_pair(wnrm + NRM_PACK_BIAS, wtan)
     va = torch.cat([packed_nt, corner_uvs], dim=1)
     mid_item = tri_mid.to(torch.float32) * 65536.0 + tri_item.to(torch.float32)
@@ -426,17 +465,19 @@ def _group_sequences(binned: BinnedTriangles) -> tuple[torch.Tensor, int]:
 
 
 def _plane_eval_split(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
-                      px2: torch.Tensor, py2: torch.Tensor) -> list:
+                      xs: torch.Tensor, ys: torch.Tensor) -> list:
     """The reference's split-eval plane evaluation (_plane_eval_dots):
-    rec [C, G, >=12] records, x0/y0 [C] tile origins, px2/py2 [NPX] the
-    bf16-exact local coordinates 2*l+1 -> [b0, b1, b2, z], each [C, G, NPX].
-    Per plane: b = ((hx*X + hy*Y) + hw) + ((lx*X + ly*Y) + lw), where
-    (h, l) are the bf16 hi/lo parts of (ex/2, ey/2, ew + ex*x0 + ey*y0 [+
-    the 2^-15 edge bias]); every product is exact in f32, so only this
-    order of additions decides the rounding."""
+    rec [C, G, >=12] records, x0/y0 [C] tile origins, xs [NX] / ys [TILE_H]
+    the bf16-exact local coordinates X = 2*lx+1 / Y = 2*ly+1 of the
+    evaluated columns / rows -> [b0, b1, b2, z], each [C, G, TILE_H * NX]
+    (row-major pixels). Per plane: b = ((hx*X + hy*Y) + hw) +
+    ((lx*X + ly*Y) + lw), where (h, l) are the bf16 hi/lo parts of (ex/2,
+    ey/2, ew + ex*x0 + ey*y0 [+ the 2^-15 edge bias]); every product is
+    exact in f32, so only this order of additions decides the rounding."""
     out = []
     x0 = x0[:, None]
     y0 = y0[:, None]
+    c, g = rec.shape[:2]
     for p in range(4):
         ex, ey, ew = rec[..., 3 * p], rec[..., 3 * p + 1], rec[..., 3 * p + 2]
         ex2 = ex * 0.5
@@ -449,19 +490,15 @@ def _plane_eval_split(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
         for v in (ex2, ey2, ew2):
             h = v.to(torch.bfloat16).to(torch.float32)
             parts.append((h, (v - h).to(torch.bfloat16).to(torch.float32)))
-        (hx, lx), (hy, ly), (hw, lw) = ((a[..., None], b[..., None])
-                                        for a, b in parts)
-        hi = (hx * px2 + hy * py2) + hw
-        lo = (lx * px2 + ly * py2) + lw
-        out.append(hi + lo)
+        (hx, lx), (hy, ly), (hw, lw) = parts
+        # the X and Y products are exact, so forming them per column and
+        # per row and adding them per pixel rounds as the reference does
+        hi = ((hx[..., None, None] * xs) + (hy[..., None, None] * ys[:, None])
+              + hw[..., None, None])
+        lo = ((lx[..., None, None] * xs) + (ly[..., None, None] * ys[:, None])
+              + lw[..., None, None])
+        out.append((hi + lo).reshape(c, g, -1))
     return out
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a*b + c rounded once, as a fused multiply-add: the f32 product is
-    exact in f64, so only the f64 sum and the final f32 rounding remain
-    (equal to a true FMA except for rare double-rounding ties)."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def _resolve(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
@@ -500,89 +537,123 @@ def _resolve(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     return torch.where(is_bg[..., None], zero, g)
 
 
-def rasterize_gbuf_plain(binned: BinnedTriangles, width: int, height: int):
-    """Plain PyTorch version of kernel K1: all tiles of a chunk step
-    through their group streams together; a group's winner is its first
-    covered minimum and replaces the carry only if strictly nearer, as in
-    the reference kernel. -> (depth [H, W], tri_id [H, W] int32,
-    gbuf [GBUF_OUT, H, W])."""
-    _backend.count_plain("raster_gbuf", binned.pairs)
-    dev = binned.pairs.device
-    tiles_x, tiles_y = binned.tiles_x, binned.tiles_y
-    nt = tiles_x * tiles_y
+def _stream_chunks(binned: BinnedTriangles, allrec: torch.Tensor, width: int):
+    """The tile stream of both raster kernels, in plain PyTorch: all tiles
+    of a chunk step through their group streams together; a group's
+    winner is its first covered minimum and replaces the carry only if
+    strictly nearer, as in the reference kernels. allrec is
+    cat([gpairs, pairs]). Yields per chunk (tiles [C], x0 [C], y0 [C],
+    depth [C, NPX], win [C, NPX] int64: the winner's row in allrec, -1 =
+    none). A frame narrower than one tile evaluates only its own columns
+    (the others are cropped away: depth 1, win -1)."""
+    dev = allrec.device
+    nt = binned.tiles_x * binned.tiles_y
+    nx = min(TILE_W, width) if binned.tiles_x == 1 else TILE_W
     # tiles stepped together; each plane temporary is [chunk, GROUP, NPX]
     # f32, 1 MiB per tile, so the CPU steps fewer at a time
     chunk = 64 if dev.type == "cuda" else 16
-    allrec = torch.cat([binned.gpairs, binned.pairs], dim=0)
     groups = allrec.view(-1, GROUP, allrec.shape[1])
     seq, s_max = _group_sequences(binned)
-    lin = torch.arange(NPX, device=dev)
-    lxf = (lin % TILE_W).to(torch.float32)
-    lyf = (lin // TILE_W).to(torch.float32)
-    px2, py2 = 2.0 * lxf + 1.0, 2.0 * lyf + 1.0
+    xs = 2.0 * torch.arange(nx, device=dev, dtype=torch.float32) + 1.0
+    ys = 2.0 * torch.arange(TILE_H, device=dev, dtype=torch.float32) + 1.0
     sub = torch.arange(GROUP, device=dev)[None, :, None]
     two = torch.tensor(2.0, device=dev)
-
-    depth_t = torch.empty((nt, NPX), dtype=torch.float32, device=dev)
-    id_t = torch.empty((nt, NPX), dtype=torch.int32, device=dev)
-    gbuf_t = torch.empty((nt, NPX, GBUF_OUT), dtype=torch.float32, device=dev)
     for c0 in range(0, nt, chunk):
         tiles = torch.arange(c0, min(c0 + chunk, nt), device=dev)
-        x0 = ((tiles % tiles_x) * TILE_W).to(torch.float32)
-        y0 = ((tiles // tiles_x) * TILE_H).to(torch.float32)
-        depth = torch.ones((len(tiles), NPX), dtype=torch.float32, device=dev)
-        win = torch.full((len(tiles), NPX), -1, dtype=torch.int64, device=dev)
+        x0 = ((tiles % binned.tiles_x) * TILE_W).to(torch.float32)
+        y0 = ((tiles // binned.tiles_x) * TILE_H).to(torch.float32)
+        npx = TILE_H * nx
+        depth = torch.ones((len(tiles), npx), dtype=torch.float32, device=dev)
+        win = torch.full((len(tiles), npx), -1, dtype=torch.int64, device=dev)
         for s in range(s_max):
             g = seq[tiles, s]
             rec = groups[g.clamp(min=0), :, :12]
-            b0, b1, b2, z = _plane_eval_split(rec, x0, y0, px2, py2)
-            cover = (b0 >= 0) & (b1 >= 0) & (b2 >= 0) & (z >= 0)
+            b0, b1, b2, z = _plane_eval_split(rec, x0, y0, xs, ys)
+            cover = torch.minimum(torch.minimum(b0, b1), torch.minimum(b2, z)) >= 0
             zm = torch.where(cover, z, two)
             zmin = zm.min(dim=1).values
             amin = torch.where(zm == zmin[:, None], sub, GROUP).min(dim=1).values
             upd = (g[:, None] >= 0) & (zmin < depth)
             depth = torch.where(upd, zmin, depth)
             win = torch.where(upd, g[:, None] * GROUP + amin, win)
+        if nx < TILE_W:
+            full_d = torch.ones((len(tiles), TILE_H, TILE_W), dtype=torch.float32,
+                                device=dev)
+            full_w = torch.full((len(tiles), TILE_H, TILE_W), -1,
+                                dtype=torch.int64, device=dev)
+            full_d[:, :, :nx] = depth.view(-1, TILE_H, nx)
+            full_w[:, :, :nx] = win.view(-1, TILE_H, nx)
+            depth, win = full_d.view(-1, NPX), full_w.view(-1, NPX)
+        yield tiles, x0, y0, depth, win
+
+
+def _untile(a: torch.Tensor, binned: BinnedTriangles, width: int,
+            height: int) -> torch.Tensor:
+    """[NT, NPX, ...] tile-major -> [H, W, ...] image."""
+    tiles_x, tiles_y = binned.tiles_x, binned.tiles_y
+    rest = a.shape[2:]
+    img = a.reshape(tiles_y, tiles_x, TILE_H, TILE_W, *rest)
+    img = img.transpose(1, 2).reshape(tiles_y * TILE_H, tiles_x * TILE_W, *rest)
+    return img[:height, :width]
+
+
+def _winner_ids(allrec: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
+    """The winner's record row 12 as int32, BG_ID where nothing won."""
+    return torch.where(win < 0, BG_ID, allrec[win.clamp(min=0), 12].to(torch.int32))
+
+
+def rasterize_gbuf_plain(binned: BinnedTriangles, width: int, height: int):
+    """Plain PyTorch version of kernel K1: the shared tile stream, then the
+    winner's resolve. -> (depth [H, W], tri_id [H, W] int32,
+    gbuf [GBUF_OUT, H, W])."""
+    _backend.count_plain("raster_gbuf", binned.pairs)
+    dev = binned.pairs.device
+    nt = binned.tiles_x * binned.tiles_y
+    allrec = torch.cat([binned.gpairs, binned.pairs], dim=0)
+    lin = torch.arange(NPX, device=dev)
+    lxf = (lin % TILE_W).to(torch.float32)
+    lyf = (lin // TILE_W).to(torch.float32)
+    depth_t = torch.empty((nt, NPX), dtype=torch.float32, device=dev)
+    id_t = torch.empty((nt, NPX), dtype=torch.int32, device=dev)
+    gbuf_t = torch.empty((nt, NPX, GBUF_OUT), dtype=torch.float32, device=dev)
+    for tiles, x0, y0, depth, win in _stream_chunks(binned, allrec, width):
         rows = allrec[win.clamp(min=0), :SEL_ROWS]
-        is_bg = win < 0
         px = (lxf + x0[:, None]) + 0.5
         py = (lyf + y0[:, None]) + 0.5
         depth_t[tiles] = depth
-        id_t[tiles] = torch.where(is_bg, BG_ID, rows[..., 12].to(torch.int32))
-        gbuf_t[tiles] = _resolve(rows, px, py, is_bg)
-
-    def untile(a):                   # [NT, NPX, ...] -> [H, W, ...]
-        rest = a.shape[2:]
-        img = a.reshape(tiles_y, tiles_x, TILE_H, TILE_W, *rest)
-        img = img.transpose(1, 2).reshape(tiles_y * TILE_H, tiles_x * TILE_W,
-                                          *rest)
-        return img[:height, :width]
-
-    gbuf = untile(gbuf_t).permute(2, 0, 1).contiguous()
-    return untile(depth_t).contiguous(), untile(id_t).contiguous(), gbuf
+        id_t[tiles] = _winner_ids(allrec, win)
+        gbuf_t[tiles] = _resolve(rows, px, py, win < 0)
+    gbuf = _untile(gbuf_t, binned, width, height).permute(2, 0, 1).contiguous()
+    return (_untile(depth_t, binned, width, height).contiguous(),
+            _untile(id_t, binned, width, height).contiguous(), gbuf)
 
 
-def _rasterize_gbuf_cuda(binned: BinnedTriangles, width: int, height: int):
+def _check_binned(name: str, binned: BinnedTriangles, rows: int, width: int,
+                  height: int) -> None:
+    """Validate a BinnedTriangles handed to a CUDA raster kernel."""
     dev = binned.pairs.device
-    tiles_x, tiles_y = binned.tiles_x, binned.tiles_y
-    nt = tiles_x * tiles_y
     f32, i32 = torch.float32, torch.int32
     _backend.require(binned.pairs, "pairs", f32, dev, ndim=2)
     _backend.require(binned.gpairs, "gpairs", f32, dev, ndim=2)
     _backend.require(binned.starts, "starts", i32, dev, ndim=1)
     _backend.require(binned.rstarts, "rstarts", i32, dev, ndim=1)
     _backend.require(binned.gmeta, "gmeta", i32, dev, ndim=1)
-    if (binned.pairs.shape[1] != GBUF_ROWS
-            or binned.gpairs.shape[1] != GBUF_ROWS
-            or binned.pairs.shape[0] % GROUP
-            or binned.gpairs.shape[0] % GROUP):
-        raise ValueError("rasterize_gbuf: records must be [k*128, 32]")
-    if (binned.starts.shape[0] != nt + 1
-            or binned.rstarts.shape[0] != tiles_y + 1
+    if (binned.pairs.shape[1] != rows or binned.gpairs.shape[1] != rows
+            or binned.pairs.shape[0] % GROUP or binned.gpairs.shape[0] % GROUP):
+        raise ValueError(f"{name}: records must be [k*128, {rows}]")
+    if (binned.starts.shape[0] != binned.tiles_x * binned.tiles_y + 1
+            or binned.rstarts.shape[0] != binned.tiles_y + 1
             or binned.gmeta.shape[0] != 2):
-        raise ValueError("rasterize_gbuf: segment tables do not match tiles")
-    if cdiv(width, TILE_W) != tiles_x or cdiv(height, TILE_H) != tiles_y:
-        raise ValueError("rasterize_gbuf: frame size does not match tiles")
+        raise ValueError(f"{name}: segment tables do not match tiles")
+    if (cdiv(width, TILE_W) != binned.tiles_x
+            or cdiv(height, TILE_H) != binned.tiles_y):
+        raise ValueError(f"{name}: frame size does not match tiles")
+
+
+def _rasterize_gbuf_cuda(binned: BinnedTriangles, width: int, height: int):
+    _check_binned("rasterize_gbuf", binned, GBUF_ROWS, width, height)
+    dev = binned.pairs.device
+    f32, i32 = torch.float32, torch.int32
     depth = torch.empty((height, width), dtype=f32, device=dev)
     tri_id = torch.empty((height, width), dtype=i32, device=dev)
     gbuf = torch.empty((GBUF_OUT, height, width), dtype=f32, device=dev)
@@ -590,8 +661,8 @@ def _rasterize_gbuf_cuda(binned: BinnedTriangles, width: int, height: int):
     code = lib.vq_raster_gbuf(
         binned.pairs.data_ptr(), binned.gpairs.data_ptr(),
         binned.starts.data_ptr(), binned.rstarts.data_ptr(),
-        binned.gmeta.data_ptr(), tiles_x, tiles_y, width, height,
-        depth.data_ptr(), tri_id.data_ptr(), gbuf.data_ptr(),
+        binned.gmeta.data_ptr(), binned.tiles_x, binned.tiles_y, width,
+        height, depth.data_ptr(), tri_id.data_ptr(), gbuf.data_ptr(),
         _backend.stream_of(depth))
     _backend.check_launch("raster_gbuf", code)
     return depth, tri_id, gbuf
@@ -614,3 +685,53 @@ def rasterize_gbuf(binned: BinnedTriangles, width: int, height: int,
     if binned.pairs.is_cuda:
         return _rasterize_gbuf_cuda(binned, width, height)
     raise ValueError(f"rasterize_gbuf: unsupported device {binned.pairs.device}")
+
+
+# ===========================================================================
+# 5. the visibility raster (kernel K2)
+# ===========================================================================
+
+def rasterize_plain(binned: BinnedTriangles, width: int, height: int):
+    """Plain PyTorch version of kernel K2 (center sample): the shared tile
+    stream. -> (depth [H, W], tri_id [H, W] int32)."""
+    _backend.count_plain("raster_vis", binned.pairs)
+    dev = binned.pairs.device
+    nt = binned.tiles_x * binned.tiles_y
+    allrec = torch.cat([binned.gpairs, binned.pairs], dim=0)
+    depth_t = torch.empty((nt, NPX), dtype=torch.float32, device=dev)
+    id_t = torch.empty((nt, NPX), dtype=torch.int32, device=dev)
+    for tiles, _, _, depth, win in _stream_chunks(binned, allrec, width):
+        depth_t[tiles] = depth
+        id_t[tiles] = _winner_ids(allrec, win)
+    return (_untile(depth_t, binned, width, height).contiguous(),
+            _untile(id_t, binned, width, height).contiguous())
+
+
+def _rasterize_cuda(binned: BinnedTriangles, width: int, height: int):
+    _check_binned("rasterize", binned, PAIR_ROWS, width, height)
+    dev = binned.pairs.device
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
+    lib = _backend.library()
+    code = lib.vq_raster_vis(
+        binned.pairs.data_ptr(), binned.gpairs.data_ptr(),
+        binned.starts.data_ptr(), binned.rstarts.data_ptr(),
+        binned.gmeta.data_ptr(), binned.tiles_x, binned.tiles_y, width,
+        height, depth.data_ptr(), tri_id.data_ptr(), _backend.stream_of(depth))
+    _backend.check_launch("raster_vis", code)
+    return depth, tri_id
+
+
+def rasterize(binned: BinnedTriangles, width: int, height: int,
+              msaa: bool = False):
+    """Visibility rasterization of 16-row records -> (depth [H, W] f32 in
+    [0, 1], cleared 1.0; tri_id [H, W] int32, -1 = none) for the pixel
+    center."""
+    if msaa:
+        raise NotImplementedError("rasterize: the MSAA variant is not "
+                                  "ported yet")
+    if binned.pairs.device.type == "cpu":
+        return rasterize_plain(binned, width, height)
+    if binned.pairs.is_cuda:
+        return _rasterize_cuda(binned, width, height)
+    raise ValueError(f"rasterize: unsupported device {binned.pairs.device}")

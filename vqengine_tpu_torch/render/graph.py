@@ -1,6 +1,7 @@
 """The forward render graph — counterpart of ``vqengine_tpu/render/graph.py``
 for the main path: cull + LOD, raster front end, G-buffer raster, material
-fetch, direct-light shading, background composite and tonemap.
+fetch, shadow maps and shadow tests, direct-light shading, background
+composite and tonemap.
 
 PyTorch runs eagerly, so a render graph here is a plain function of
 (DeviceScene, FrameConstants) tensors on one device; nothing is traced or
@@ -16,9 +17,8 @@ import numpy as np
 import torch
 
 from ..ops import colorspace as cs
-from ..ops import culling, palette, raster, shading
+from ..ops import culling, palette, raster, shading, shadow
 from ..ops import postprocess as pp
-from ..ops.brdf import norm
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -191,12 +191,10 @@ def world_pos_from_depth(depth: torch.Tensor, consts: FrameConstants,
     clip = [px[None, :].expand(height, width), py[:, None].expand(height, width),
             depth, torch.ones_like(depth)]
     m = consts.inv_view_proj
-    wp = []
-    for i in range(4):
-        acc = m[i, 0] * clip[0]
-        for j in range(1, 4):
-            acc = acc + m[i, j] * clip[j]
-        wp.append(acc)
+    # summed in pairs, as XLA sums the reference's einsum "ij,hwj->hwi" on
+    # the CPU: the shadow tests amplify an ulp of wpos into a texel flip
+    wp = [(m[i, 0] * clip[0] + m[i, 1] * clip[1])
+          + (m[i, 2] * clip[2] + m[i, 3] * clip[3]) for i in range(4)]
     w = torch.where(wp[3].abs() > 1e-12, wp[3], torch.full_like(wp[3], 1e-12))
     return torch.stack(wp[:3], dim=-1) / w[..., None]
 
@@ -228,9 +226,7 @@ def geometry_setup_gbuf(scene: DeviceScene, consts: FrameConstants,
         consts.frustum_planes, consts.view_proj, scene.item_num_lods)
     tri_mask = culling.triangle_mask_from_items(
         scene.tri_item, scene.tri_lod, visible, lod)
-    # wvp[n, i, k] = sum_j view_proj[i, j] * world[n, j, k]
-    wvp = raster.dot_last(consts.view_proj[None, :, None, :],
-                           consts.world.transpose(1, 2)[:, None, :, :])
+    wvp = raster.world_view_proj(consts.view_proj, consts.world)
     tl = scene.num_tris_live
     tri_item = scene.tri_item[:tl]
     clip_c = raster.transform_clip_corners(scene.corner_positions, tri_item, wvp)
@@ -279,9 +275,151 @@ def material_pass(wnrm: torch.Tensor, mrow: torch.Tensor,
     }
 
 
-def _has_casters(consts: FrameConstants) -> bool:
-    return (consts.spot_casters.shape[0] > 0 or consts.point_casters.shape[0] > 0
-            or consts.dir_vp.shape[0] > 0)
+def pool2(x: torch.Tensor, reduce: str = "mean") -> torch.Tensor:
+    """2x2 downsample of [H, W, ...]; a 2x2 block (a b / c d) sums as
+    ((a + b) + c) + d, as XLA reduces the reference's reshape on the
+    CPU."""
+    h = x.shape[0] // 2 * 2
+    w = x.shape[1] // 2 * 2
+    a, b = x[0:h:2, 0:w:2], x[0:h:2, 1:w:2]
+    c, d = x[1:h:2, 0:w:2], x[1:h:2, 1:w:2]
+    if reduce == "min":
+        return torch.minimum(torch.minimum(a, b), torch.minimum(c, d))
+    return (((a + b) + c) + d) / 4.0
+
+
+SHADOW_DIMS = (shadow.SPOT_SHADOW_DIM, shadow.POINT_SHADOW_DIM,
+               shadow.DIRECTIONAL_SHADOW_DIM)
+
+
+def render_shadow_maps(scene: DeviceScene, consts: FrameConstants,
+                       shadow_dims: tuple[int, int, int] = SHADOW_DIMS,
+                       filter_mode: str = "esm") -> dict:
+    """Render every caster's depth map (the per-light shadow passes,
+    SceneRendering.cpp:1114-1263), one kernel-K2 view at a time: spot
+    maps, then the six faces of each point cube (radial distance / far),
+    then the directional map. ESM maps are prefiltered and stored as
+    bf16: spot and directional pooled once, point cubes twice. Caster
+    counts come from the leading sizes of the caster arrays."""
+    maps: dict = {}
+    sc = int(consts.spot_casters.shape[0])
+    pc = int(consts.point_casters.shape[0])
+    has_dir = int(consts.dir_vp.shape[0]) > 0
+    esm = filter_mode == "esm"
+
+    def depth_of(vp, size):
+        return shadow.render_shadow_depth(
+            scene.positions, scene.item_of_vertex, consts.world, vp,
+            scene.indices, size)
+
+    if sc:
+        dm = torch.stack([depth_of(consts.spot_caster_vps[i], shadow_dims[0])
+                          for i in range(sc)])
+        maps["spot"] = (shadow.prefilter_esm(dm, pool=1).to(torch.bfloat16)
+                        if esm else dm)
+    if pc:
+        vps6 = consts.point_caster_vps.reshape(pc * 6, 4, 4)
+        nf6 = consts.point_caster_range.repeat_interleave(6, dim=0)
+        faces = torch.stack([
+            shadow.ndc_depth_to_radial(depth_of(vps6[k], shadow_dims[1]),
+                                       nf6[k, 0], nf6[k, 1])
+            for k in range(pc * 6)])
+        cubes = faces.reshape(pc, 6, shadow_dims[1], shadow_dims[1])
+        maps["point"] = (shadow.prefilter_esm(cubes, pool=2).to(torch.bfloat16)
+                         if esm else cubes)
+    if has_dir:
+        d = depth_of(consts.dir_vp[0], shadow_dims[2])
+        maps["dir"] = (shadow.prefilter_esm(d, pool=1).to(torch.bfloat16)
+                       if esm else d)
+    return maps
+
+
+def shadow_pass(scene: DeviceScene, consts: FrameConstants,
+                wpos: torch.Tensor, normal: torch.Tensor,
+                shadow_dims: tuple[int, int, int] = SHADOW_DIMS,
+                filter_mode: str = "esm",
+                shadow_maps: dict | None = None):
+    """Per-caster shadow visibility over the main view -> (spot [SC, H, W],
+    point [PC, H, W], dir [H, W]), each None without such casters. Maps
+    come from `shadow_maps` (cached for static lights) or are rendered
+    in the frame by render_shadow_maps. ESM tests the directional caster
+    at half resolution and spot and point casters at quarter resolution,
+    then scales them back up (edge rows and columns replicated where a
+    side is odd); PCF tests at full resolution."""
+    sc = int(consts.spot_casters.shape[0])
+    pc = int(consts.point_casters.shape[0])
+    has_dir = int(consts.dir_vp.shape[0]) > 0
+    if shadow_maps is None:
+        shadow_maps = render_shadow_maps(scene, consts, shadow_dims,
+                                         filter_mode)
+    esm = filter_mode == "esm"
+    full_h, full_w = wpos.shape[:2]
+    if esm:
+        wpos_h = pool2(wpos)
+        wpos_q = pool2(wpos_h)
+
+    def up(v, times=1):
+        if not esm:
+            return v
+        for _ in range(times):
+            v = v.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+        v = v[..., :full_h, :full_w]
+        ph = full_h - v.shape[-2]
+        pw = full_w - v.shape[-1]
+        if ph > 0:
+            v = torch.cat([v] + [v[..., -1:, :]] * ph, dim=-2)
+        if pw > 0:
+            v = torch.cat([v] + [v[..., :, -1:]] * pw, dim=-1)
+        return v
+
+    spot_vis = None
+    if sc:
+        if esm:
+            vis = shadow.shadow_test_esm_batch(
+                wpos_q, consts.spot_caster_vps[:sc], shadow_maps["spot"][:sc],
+                consts.spot_casters[:, 11])
+        else:
+            per = []
+            for i in range(sc):
+                lrow = consts.spot_casters[i]
+                wi = lrow[0:3] - wpos
+                wi = wi / torch.clamp(shadow.norm3(wi), min=1e-9)[..., None]
+                ndotl = torch.clamp(shadow.dot3(normal, wi), 0.0, 1.0)
+                per.append(shadow.shadow_test_pcf(
+                    wpos, ndotl, consts.spot_caster_vps[i],
+                    shadow_maps["spot"][i], lrow[11], slope_scaled=True))
+            vis = torch.stack(per)
+        spot_vis = up(vis, times=2)
+
+    point_vis = None
+    if pc:
+        if esm:
+            vis = shadow.omni_shadow_test_esm_batch(
+                wpos_q, consts.point_casters[:, 0:3], shadow_maps["point"][:pc],
+                consts.point_casters[:, 9], consts.point_casters[:, 8])
+        else:
+            vis = torch.stack([shadow.omni_shadow_test_pcf(
+                wpos, consts.point_casters[i, 0:3], shadow_maps["point"][i],
+                consts.point_casters[i, 9], consts.point_casters[i, 8],
+                consts.camera_pos) for i in range(pc)])
+        point_vis = up(vis, times=2)
+
+    dir_vis = None
+    if has_dir:
+        # the directional shadowing flag rides in directional[8]
+        dmap = shadow_maps["dir"]
+        if esm:
+            dir_vis = shadow.shadow_test_esm(
+                wpos_h, consts.dir_vp[0], dmap, consts.directional[7])
+        else:
+            wi = -consts.directional[0:3]
+            wi = wi / torch.clamp(shadow.norm3(wi), min=1e-9)
+            ndotl = torch.clamp(shadow.dot3(normal, wi), 0.0, 1.0)
+            dir_vis = shadow.shadow_test_pcf(
+                wpos, ndotl, consts.dir_vp[0], dmap, consts.directional[7],
+                slope_scaled=False)
+        dir_vis = up(dir_vis)
+    return spot_vis, point_vis, dir_vis
 
 
 def render_forward(scene: DeviceScene, consts: FrameConstants,
@@ -289,6 +427,7 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                    output_display_curve: int = cs.DISPLAY_CURVE_SRGB,
                    apply_gamma: bool = True,
                    enable_shadows: bool = True,
+                   shadow_dims: tuple[int, int, int] = SHADOW_DIMS,
                    env=None,
                    enable_ssao: bool = False,
                    enable_motion_vectors: bool = False,
@@ -298,12 +437,17 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                    out_width: int | None = None,
                    out_height: int | None = None,
                    cas_sharpness: float | None = None,
+                   shadow_filter: str = "esm",
+                   shadow_maps: dict | None = None,
                    enable_alpha_mask: bool = False,
                    scene_transparent: DeviceScene | None = None,
                    pair_capacity: int | None = None) -> dict:
-    """Forward frame: geometry -> material -> shade -> background ->
-    tonemap. Returns ldr [H, W, 3], hdr, depth, tri_id, object_id,
-    overflow [3], pair_demand and saturation, as the reference does."""
+    """Forward frame: geometry -> material -> shadows -> shade ->
+    background -> tonemap. Returns ldr [H, W, 3], hdr, depth, tri_id,
+    object_id, overflow [3], pair_demand and saturation, as the reference
+    does. With enable_shadows, caster lights are shadowed by maps from
+    `shadow_maps` (render_shadow_maps, cached) or rendered in the frame;
+    without, they drop out, as in the reference."""
     unported = {
         "env": env is not None, "textures": textures is not None,
         "msaa": msaa, "enable_ssao": enable_ssao, "enable_ssr": enable_ssr,
@@ -313,7 +457,6 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
         "cas_sharpness": cas_sharpness is not None,
         "resize": ((out_width is not None and out_width != width)
                    or (out_height is not None and out_height != height)),
-        "shadow casters": enable_shadows and _has_casters(consts),
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
@@ -323,18 +466,26 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
     depth, tri_id, attrs, mask = geometry_pass(
         scene, consts, width, height, pair_capacity=pair_capacity, tel=tel)
     wn = attrs["wnrm"]
-    wn = wn / torch.clamp(norm(wn), min=1e-9)[..., None]
+    wn = wn / torch.clamp(shadow.norm3(wn), min=1e-9)[..., None]
     mat = material_pass(wn, attrs["mrow"], attrs["ids"])
     n = mat["normal"]
-    # no casters: the reference's shadow pass is a no-op
-    # (vqengine_tpu/render/graph.py:821-871)
+    spot_vis = point_vis = dir_vis = None
+    if enable_shadows:
+        spot_vis, point_vis, dir_vis = shadow_pass(
+            scene, consts, attrs["wpos"], n, shadow_dims, shadow_filter,
+            shadow_maps=shadow_maps)
     ao = consts.ambient_factor * mat["local_ao"]
     hdr = shading.shade_forward(
         world_pos=attrs["wpos"], normal=n, albedo=mat["albedo"],
         roughness=mat["roughness"], metalness=mat["metalness"],
         emissive=mat["emissive"], ao=ao, camera_pos=consts.camera_pos,
         point_lights=consts.point_lights, spot_lights=consts.spot_lights,
-        spot_extra=consts.spot_extra, directional=consts.directional)
+        spot_extra=consts.spot_extra, directional=consts.directional,
+        point_casters=consts.point_casters if enable_shadows else None,
+        point_shadow=point_vis,
+        spot_casters=consts.spot_casters if enable_shadows else None,
+        spot_caster_extra=consts.spot_caster_extra if enable_shadows else None,
+        spot_shadow=spot_vis, dir_shadow=dir_vis)
     background = consts.clear_color.expand(hdr.shape)
     hdr = torch.where(mask[..., None], hdr, background)
     ldr = pp.tonemap(hdr, output_display_curve, apply_gamma=apply_gamma)

@@ -1,6 +1,7 @@
 """Renderer — counterpart of ``vqengine_tpu/render/renderer.py``
-(VQRendererTPU): owns the device scene, packs the per-frame constants and
-keeps the demand-sized binning capacity (the pair bucket).
+(VQRendererTPU): owns the device scene, packs the per-frame constants,
+renders the cached shadow maps of static casters and keeps the
+demand-sized binning capacity (the pair bucket).
 
 The reference caches one jitted graph per static option set; the port
 runs eagerly, so there is no graph cache.
@@ -10,17 +11,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vqengine_tpu.render.scene_buffers import SceneBuffers, split_transparent
-from vqengine_tpu.scene.light import (ELightType, NUM_LIGHTS_POINT,
-                                      NUM_LIGHTS_SPOT,
-                                      NUM_SHADOWING_LIGHTS_POINT,
-                                      NUM_SHADOWING_LIGHTS_SPOT,
-                                      pack_directional, pack_point_lights,
-                                      pack_spot_extra, pack_spot_lights)
-from vqengine_tpu.utils import math3d as m3
-
 from ..ops import raster
+from ..scene.light import (ELightType, NUM_LIGHTS_POINT, NUM_LIGHTS_SPOT,
+                           NUM_SHADOWING_LIGHTS_POINT,
+                           NUM_SHADOWING_LIGHTS_SPOT, pack_directional,
+                           pack_point_lights, pack_spot_extra,
+                           pack_spot_lights)
+from ..utils import math3d as m3
 from . import graph
+from .scene_buffers import SceneBuffers, split_transparent
+
+
+def shadow_maps_from_numpy(maps: dict, device: torch.device) -> dict:
+    """The JAX package's shadow-map dict (numpy leaves, from
+    render_shadow_maps or precompute_shadow_maps) -> the port's, on
+    `device`. bf16 maps arrive as ml_dtypes bfloat16 and keep their bits."""
+    out = {}
+    for k, v in maps.items():
+        a = np.asarray(v)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16).view(np.int16).copy())
+            out[k] = t.view(torch.bfloat16).to(device)
+        else:
+            out[k] = graph._tensor(a, device)
+    return out
 
 
 def frame_constants_numpy(buffers: SceneBuffers, camera, lights,
@@ -114,10 +128,24 @@ class VQRendererTorch:
         return graph.frame_constants_from_numpy(
             frame_constants_numpy(buffers, camera, lights, **kw), self.device)
 
+    def precompute_shadow_maps(self, consts: graph.FrameConstants,
+                               shadow_dims: tuple[int, int, int] | None = None,
+                               filter_mode: str = "esm") -> dict:
+        """Render the casters' shadow maps once (STATIC/STATIONARY light
+        mobility, Light.h:45-186); pass the result to render(...,
+        shadow_maps=...) so that frames run only the shadow tests."""
+        if self.scene is None:
+            raise RuntimeError("load_scene first")
+        return graph.render_shadow_maps(self.scene, consts,
+                                        shadow_dims or graph.SHADOW_DIMS,
+                                        filter_mode)
+
     def render(self, consts: graph.FrameConstants, width: int, height: int,
                **flags) -> dict:
-        """One forward frame (graph.render_forward) at the current pair
-        bucket; the frame's measured demand then updates the bucket."""
+        """One forward frame (graph.render_forward; flags such as
+        enable_shadows, shadow_dims, shadow_filter and shadow_maps pass
+        through) at the current pair bucket; the frame's measured demand
+        then updates the bucket."""
         if self.scene is None:
             raise RuntimeError("load_scene first")
         out = graph.render_forward(self.scene, consts, width, height,

@@ -12,21 +12,34 @@ the final line:
      pre-padded table with pre-clamped ids as the library yardstick;
   4. K1 G-buffer raster kernel vs its plain version on the binned Sponza
      1920x1080 frame (tri_id/depth bitwise, gbuf within GBUF_TOL), timed;
+     then its MSAA variant on the same frame (depth, tri_id and coverage
+     bitwise, gbuf within GBUF_TOL), timed; Sponza's interior covers
+     every sample, so the MSAA variant is also held against its plain
+     version on HelloCube at 1920x1080 and 192x108 (silhouettes: partly
+     covered pixels and sample-only winners, each count above 0) and on
+     the crafted records of ops/raster_probes.py (thresholds decided by
+     their rounding, key select, z = 1, records past the counts);
   5. K2 visibility raster kernel vs its plain version on Sponza's 8 caster
      views at the full shadow budget (spot 1024^2, 6 point faces 1024^2,
      directional 2048^2): pair demand, capacity and overflow per view;
-     depth and tri_id bitwise; timed;
-  6. HelloTriangle/HelloCube at 192x108 on the card against the goldens
-     (the bars of vqengine_tpu_torch/engine/goldens.py), the entry()
-     frame on the card against the same frame on the CPU, and a shadowed
-     Sponza frame (192x108, ESM, 64^2 maps rendered in the frame) on the
-     card against the CPU;
+     depth and tri_id bitwise; timed; then its MSAA variant on the
+     directional and the spot view (per-sample stacks bitwise), timed;
+  6. HelloTriangle/HelloCube (and HelloCube with MSAA) at 192x108 on the
+     card against the goldens (the bars of
+     vqengine_tpu_torch/engine/goldens.py), the entry() frame on the card
+     against the same frame on the CPU, a shadowed Sponza frame (192x108,
+     ESM, 64^2 maps rendered in the frame) on the card against the CPU,
+     and the MSAA Sponza frame (192x108, cached 64^2 ESM maps) on the card
+     against the CPU in both edge-resolve modes;
   7. main paths, Sponza 1920x1080, each with the kernel launch counts set
-     to 0 just before it and read just after: (a) the engine's shadowed
-     path: precompute_shadow_maps (ESM, full budget; timed), then 16
-     frames of a yaw sweep with the cached maps; (b) 4 frames rendering
+     to 0 just before it and read just after: (a) the shadowed path
+     without MSAA: precompute_shadow_maps (ESM, full budget; timed), then
+     16 frames of a yaw sweep with the cached maps; (b) 4 frames rendering
      the maps in the frame (dynamic casters); (c) 4 PCF frames with cached
-     PCF maps; (d) 8 frames with shadows off (the first slice's path).
+     PCF maps; (d) 8 frames with shadows off (the first slice's path);
+     (e) the engine's default frame: the precompute, then 16 frames with
+     MSAA 4x and the neighbor edge resolve (edge saturation per frame),
+     and 4 frames with the "shade" edge resolve.
      Overflow 0 and finite output; ms/frame, peak memory, launches.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -55,9 +68,13 @@ ENTRY_TOL = 3e-4  # card vs CPU ldr: the multichip bar of the reference
 # tensor cores, and HBM3
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# flops per streamed record per pixel of the raster kernels: 4 planes x
-# (two products and two sums for the hi part, the same for lo, one add)
+# fp32 operations per streamed record per pixel of the raster kernels: 4
+# planes x (two products and two sums for the hi part, the same for lo, one
+# add) = 36; K1-MSAA adds 12 threshold compares, 3 more for the depth key's
+# sample-1 thresholds and the z + 1 (52), K2-msaa4 16 offset adds (52)
 RASTER_FLOPS = 36
+RASTER_FLOPS_MSAA = 52
+RASTER_FLOPS_MSAA4 = 52
 ROOT = Path(__file__).resolve().parent
 
 
@@ -100,7 +117,8 @@ def bound(ops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
-def raster_work(binned, width: int, height: int, out_bytes_px: int):
+def raster_work(binned, width: int, height: int, out_bytes_px: int,
+                flops: int = RASTER_FLOPS):
     """(operations, bytes) of one raster kernel call on these inputs: every
     record of every group a tile streams against each of the tile's
     pixels inside the frame; the binned arrays read once, the outputs
@@ -111,7 +129,7 @@ def raster_work(binned, width: int, height: int, out_bytes_px: int):
     tiles = torch.arange(binned.tiles_x * binned.tiles_y, device=seq.device)
     px_w = (width - (tiles % binned.tiles_x) * raster.TILE_W).clamp(max=raster.TILE_W)
     px_h = (height - (tiles // binned.tiles_x) * raster.TILE_H).clamp(max=raster.TILE_H)
-    ops = RASTER_FLOPS * raster.GROUP * float((groups * (px_w * px_h)).sum())
+    ops = flops * raster.GROUP * float((groups * (px_w * px_h)).sum())
     inputs = (binned.pairs, binned.gpairs, binned.starts, binned.rstarts,
               binned.gmeta)
     nbytes = (sum(t.numel() * t.element_size() for t in inputs)
@@ -247,8 +265,83 @@ def phase_raster(dev, sponza, renderer) -> dict:
         f"bitwise equal, gbuf bitwise {bitwise_equal(g, g2)} "
         f"(max |diff| {gerr}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
         f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-    return {"max_abs_err": max(gerr, float((d - d2).abs().max())),
-            "ms": t_k, "plain_ms": t_p, **bd, "library_ms": None}
+    k1 = {"max_abs_err": max(gerr, float((d - d2).abs().max())),
+          "ms": t_k, "plain_ms": t_p, **bd, "library_ms": None}
+    return k1, phase_raster_msaa(dev, binned)
+
+
+def check_msaa_kernel(binned, width: int, height: int, label: str):
+    """K1-MSAA against its plain version on one binned input: depth,
+    tri_id and coverage bitwise, gbuf within GBUF_TOL -> (outputs, max
+    |gbuf diff|, partly covered pixels, sample-only winners: pixels that
+    K1-MSAA gives a winner and the center-sampled K1 none)."""
+    from vqengine_tpu_torch.ops import raster
+    out = raster.rasterize_gbuf(binned, width, height, msaa=True)
+    plain = raster.rasterize_gbuf_plain(binned, width, height, msaa=True)
+    _, center, _ = raster.rasterize_gbuf(binned, width, height)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("depth", "tri_id", "gbuf", "coverage"), out, plain):
+        if name != "gbuf" and not bitwise_equal(a, b):
+            fail(f"K1-MSAA {label}: {name} differs on {int((a != b).sum())} "
+                 f"values")
+    gerr = float((out[2] - plain[2]).abs().max())
+    if not gerr <= GBUF_TOL:
+        fail(f"K1-MSAA {label}: gbuf max |kernel - plain| {gerr} > {GBUF_TOL}")
+    n = out[3].sum(0)
+    part = int(((n > 0) & (n < 4)).sum())
+    sample_only = int(((out[1] >= 0) & (center < 0)).sum())
+    return out, gerr, part, sample_only
+
+
+def phase_raster_msaa(dev, binned) -> dict:
+    """K1-MSAA against its plain version on the binned Sponza frame
+    (timed), on HelloCube's silhouettes and on the crafted records."""
+    from vqengine_tpu_torch.engine.scene_load import load_scene
+    from vqengine_tpu_torch.ops import raster, raster_probes
+    from vqengine_tpu_torch.render import graph
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    _, gerr, part, sample_only = check_msaa_kernel(binned, W, H, "Sponza")
+    say(f"[K1-MSAA] Sponza {W}x{H}: tri_id, depth and coverage bitwise "
+        f"equal, gbuf max |diff| {gerr}; partly covered pixels {part}, "
+        f"sample-only winners {sample_only} (a closed interior)")
+    for w, h in ((W, H), (SMALL_W, SMALL_H)):
+        s = load_scene("HelloCube", w, h)
+        r = VQRendererTorch(dev)
+        r.load_scene(s.buffers)
+        c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+        setup, extra = graph.geometry_setup_gbuf(r.scene, c, w, h)
+        cube = raster.bin_triangles(setup, w, h, extra=extra)
+        _, err, cube_part, cube_only = check_msaa_kernel(cube, w, h, "HelloCube")
+        gerr = max(gerr, err)
+        say(f"[K1-MSAA] HelloCube {w}x{h}: tri_id, depth and coverage "
+            f"bitwise equal, gbuf max |diff| {err}; partly covered pixels "
+            f"{cube_part}, sample-only winners {cube_only}")
+        if not (cube_part and cube_only):
+            fail(f"K1-MSAA HelloCube {w}x{h}: no silhouette to check "
+                 f"({cube_part} partly covered, {cube_only} sample-only)")
+    probe, counts = raster_probes.msaa_probe(device=dev)
+    (depth, tri_id, _, cov), err, p_part, p_only = check_msaa_kernel(
+        probe, raster_probes.WIDTH, raster_probes.HEIGHT, "crafted records")
+    gerr = max(gerr, err)
+    one = int(((cov.sum(0) == 1) & (tri_id >= 0)).sum())
+    z1 = int(((depth == 0) & (tri_id >= 0)).sum())
+    say(f"[K1-MSAA] crafted records (ops/raster_probes.py, {counts}): "
+        f"bitwise equal, gbuf max |diff| {err}; one-sample winners {one}, "
+        f"sample-only winners {p_only}, z = 1 winners {z1}")
+    if one < counts["thresholds"] // 4 or not p_only or z1 != counts["z1"]:
+        fail(f"K1-MSAA crafted records did not reach their cases: {one} "
+             f"one-sample, {p_only} sample-only, {z1} z = 1")
+    t_k = time_ms(lambda: raster.rasterize_gbuf(binned, W, H, msaa=True), 20)
+    t_p = time_ms(lambda: raster.rasterize_gbuf_plain(binned, W, H, msaa=True),
+                  3, warmup=1)
+    # outputs: depth, tri_id, 16 G-buffer channels and 4 coverage planes
+    bd = bound(*raster_work(binned, W, H, 4 * (2 + raster.GBUF_OUT + 4),
+                            RASTER_FLOPS_MSAA))
+    say(f"[K1-MSAA] Sponza {W}x{H}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+        f"{RASTER_FLOPS_MSAA} operations per record per pixel)")
+    return {"max_abs_err": gerr, "ms": t_k, "plain_ms": t_p, **bd,
+            "library_ms": None}
 
 
 def caster_views(consts) -> list:
@@ -306,6 +399,46 @@ def phase_vis(dev, sponza, renderer) -> dict:
     say(f"[K2] per frame (8 views): kernel {ms:.4f} ms, bound "
         f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); plain {plain_ms:.4f} ms "
         f"on the {plain_view} view alone")
+    k2 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+          "library_ms": None}
+    return k2, phase_vis_msaa4(renderer, consts, views)
+
+
+def phase_vis_msaa4(renderer, consts, views) -> dict:
+    """K2-msaa4 against its plain version on the directional 2048^2 view
+    and the first 1024^2 spot view; its times and bound are their sums."""
+    from vqengine_tpu_torch.ops import raster, shadow
+    scene = renderer.scene
+    ms = plain_ms = err = ops = nbytes = 0.0
+    for name, vp, size in [v for v in views if v[0] in ("dir", "spot0")]:
+        binned = shadow.bin_shadow_view(scene.positions, scene.item_of_vertex,
+                                        consts.world, vp, scene.indices, size)
+        d, i = raster.rasterize(binned, size, size, msaa=True)
+        d2, i2 = raster.rasterize_plain(binned, size, size, msaa=True)
+        torch.cuda.synchronize()
+        if not (bitwise_equal(i, i2) and bitwise_equal(d, d2)):
+            fail(f"K2-msaa4 {name}: kernel != plain on "
+                 f"{int((i != i2).sum())} ids, {int((d != d2).sum())} depths")
+        err = max(err, float((d - d2).abs().max()))
+        t_k = time_ms(lambda: raster.rasterize(binned, size, size, msaa=True), 10)
+        t_p = time_ms(lambda: raster.rasterize_plain(binned, size, size, msaa=True),
+                      1, warmup=1)
+        # depth and tri_id per sample
+        o, b = raster_work(binned, size, size, 4 * 8, RASTER_FLOPS_MSAA4)
+        ops += o
+        nbytes += b
+        ms += t_k
+        plain_ms += t_p
+        bd = bound(o, b)
+        split = float((i != i[:1]).any(0).float().mean())
+        say(f"[K2-msaa4] {name} {size}^2: depth and tri_id stacks bitwise "
+            f"equal; texels whose samples differ {split:.4f}; kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}, {RASTER_FLOPS_MSAA4} operations per record "
+            f"per pixel)")
+    bd = bound(ops, nbytes)
+    say(f"[K2-msaa4] both views: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
             "library_ms": None}
 
@@ -357,6 +490,36 @@ def phase_shadow_card_vs_cpu(dev) -> None:
         fail(f"shadowed Sponza card vs CPU: share {share}, ldr diff {diff}")
 
 
+def phase_msaa_card_vs_cpu(dev) -> None:
+    """Sponza at 192x108 with MSAA and cached 64^2 ESM maps, on the card
+    and on the CPU, in both edge-resolve modes: ldr within ENTRY_TOL where
+    tri_id agrees, the same edge saturation."""
+    from vqengine_tpu_torch.engine.scene_load import load_scene
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    s = load_scene("Sponza", SMALL_W, SMALL_H)
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+        sides.append((r, c, r.precompute_shadow_maps(c, SMALL_DIMS)))
+    for mode in ("neighbor", "shade"):
+        outs = [r.render(c, SMALL_W, SMALL_H, shadow_dims=SMALL_DIMS,
+                         shadow_maps=m, msaa=True, msaa_edge_resolve=mode)
+                for r, c, m in sides]
+        same = outs[0]["tri_id"].cpu() == outs[1]["tri_id"]
+        share = float(same.float().mean())
+        diff = float((outs[0]["ldr"].cpu() - outs[1]["ldr"])[same].abs().max())
+        sat = [float(o["saturation"]["msaa_edges"]) for o in outs]
+        say(f"[msaa] Sponza {SMALL_W}x{SMALL_H}, MSAA 4x, {mode} edge resolve, "
+            f"cached ESM maps {SMALL_DIMS[0]}^2, card vs CPU: tri_id agrees on "
+            f"{share:.6f} of pixels, max |ldr diff| {diff} there; msaa_edges "
+            f"{sat[0]:.4f} (CPU {sat[1]:.4f})")
+        if share < 0.999 or not diff <= ENTRY_TOL or sat[0] != sat[1]:
+            fail(f"MSAA Sponza card vs CPU ({mode}): share {share}, ldr diff "
+                 f"{diff}, saturation {sat}")
+
+
 def run_frames(renderer, consts: list, card: str, label: str, **flags) -> dict:
     """Render the frames (CUDA events around each) with the launch counts
     set to 0 first; fail on overflow, non-finite output or a plain version
@@ -364,7 +527,7 @@ def run_frames(renderer, consts: list, card: str, label: str, **flags) -> dict:
     from vqengine_tpu_torch.ops import _backend
     torch.cuda.synchronize()
     _backend.reset_counts()
-    times, cover = [], []
+    times, cover, sat = [], [], []
     for i, c in enumerate(consts):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -379,6 +542,9 @@ def run_frames(renderer, consts: list, card: str, label: str, **flags) -> dict:
         if int(out["overflow"].sum()):
             fail(f"{label} frame {i}: overflow {out['overflow'].tolist()}")
         cover.append(float((out["tri_id"] >= 0).float().mean()))
+        if "msaa_edges" in out["saturation"]:
+            sat.append((float(out["saturation"]["msaa_edges"]),
+                        float(out["saturation"]["msaa_edges_demand"])))
     launches = dict(_backend.launches)
     plain = dict(_backend.plain_cuda_calls)
     ms = sorted(times)
@@ -386,6 +552,13 @@ def run_frames(renderer, consts: list, card: str, label: str, **flags) -> dict:
         f"share {min(cover):.4f}..{max(cover):.4f}; ms/frame (CUDA events, "
         f"host syncs included): mean {sum(ms) / len(ms):.3f}, median "
         f"{ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f} on {card}")
+    if sat:
+        say(f"[main] {label}: saturation msaa_edges "
+            f"{min(v for v, _ in sat):.4f}..{max(v for v, _ in sat):.4f}, "
+            f"msaa_edges_demand {min(v for _, v in sat):.4f}.."
+            f"{max(v for _, v in sat):.4f}")
+        if max(v for v, _ in sat) > 1.0:
+            fail(f"{label}: the edge compaction overflowed: {sat}")
     say(f"[main] {label}: kernel launches {launches}; plain-version calls on "
         f"CUDA tensors {plain}")
     if max(plain.values()) != 0:
@@ -441,6 +614,9 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
         renderer.render(c, W, H, shadow_maps=maps)
         renderer.render(c, W, H)
         renderer.render(c, W, H, enable_shadows=False)
+        renderer.render(c, W, H, shadow_maps=maps, msaa=True)
+        renderer.render(c, W, H, shadow_maps=maps, msaa=True,
+                        msaa_edge_resolve="shade")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -452,7 +628,7 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     say(f"[main] shadowed path (precompute + {N_FRAMES} frames): launches "
         f"{launches}; peak device memory {peak:.1f} MiB")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("palette", "raster_gbuf", "raster_vis")) <= 0:
         fail(f"a kernel of the shadowed path never launched: {launches}")
     if frames["raster_vis"] != 0:
         fail(f"cached-map frames launched raster_vis {frames['raster_vis']} times")
@@ -474,8 +650,28 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
                      enable_shadows=False)
     if min(off["palette"], off["raster_gbuf"]) <= 0 or off["raster_vis"]:
         fail(f"shadows-off path launches {off}")
+
+    # (e) the engine's default frame (bAntiAliasing on): static casters'
+    # maps cached once, MSAA 4x with the neighbor edge resolve
+    torch.cuda.reset_peak_memory_stats()
+    maps_e, _, pre_e = precompute(renderer, consts[0], card, "esm")
+    msaa = run_frames(renderer, consts, card,
+                      "engine default: MSAA 4x, neighbor edge resolve, cached "
+                      "ESM maps", shadow_maps=maps_e, msaa=True)
+    peak_e = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches_e = {k: pre_e[k] + msaa[k] for k in msaa}
+    say(f"[main] engine default path (precompute + {N_FRAMES} MSAA frames): "
+        f"launches {launches_e}; peak device memory {peak_e:.1f} MiB")
+    if (msaa["raster_gbuf_msaa"] != N_FRAMES or msaa["raster_gbuf"]
+            or msaa["raster_vis"] or msaa["palette"] <= 0):
+        fail(f"MSAA frames launched {msaa}")
+    shade = run_frames(renderer, side, card,
+                       "MSAA 4x, shade edge resolve, cached ESM maps",
+                       shadow_maps=maps_e, msaa=True, msaa_edge_resolve="shade")
+    if shade["raster_gbuf_msaa"] != len(side):
+        fail(f"shade-mode MSAA frames launched {shade}")
     say(f"[main] pair bucket {renderer.pair_bucket}")
-    return launches
+    return {k: launches[k] + launches_e[k] for k in launches}
 
 
 def idle_share(trace: dict, window_name: str) -> tuple[float, float, dict]:
@@ -508,12 +704,14 @@ def idle_share(trace: dict, window_name: str) -> tuple[float, float, dict]:
 
 def phase_profile(sponza, renderer) -> None:
     """Where a shadowed Sponza frame's time goes: CUDA-event time of each
-    stage (host syncs included), and the card's busy and idle time from a
-    torch.profiler trace of PROFILE_FRAMES cached-map frames, written to
+    stage (host syncs included) of the cached-map frame without MSAA and of
+    the MSAA stages of the engine's default frame, and the card's busy and
+    idle time from a torch.profiler trace of PROFILE_FRAMES default frames
+    (MSAA, neighbor edge resolve, cached maps), written to
     traces/sponza_trace.json."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from vqengine_tpu_torch.ops import raster, shadow
+    from vqengine_tpu_torch.ops import msaa, raster, shadow
     from vqengine_tpu_torch.render import graph
     c = renderer.build_frame_constants(sponza.buffers, sponza.cameras[0],
                                        sponza.lights)
@@ -521,7 +719,7 @@ def phase_profile(sponza, renderer) -> None:
     maps = renderer.precompute_shadow_maps(c)
     setup, extra = graph.geometry_setup_gbuf(scene, c, W, H)
     binned = raster.bin_triangles(setup, W, H, extra=extra)
-    _, _, attrs, _ = graph.geometry_pass(scene, c, W, H)
+    _, _, attrs, _, _ = graph.geometry_pass(scene, c, W, H)
     wn = attrs["wnrm"]
     n = wn / torch.clamp(shadow.norm3(wn), min=1e-9)[..., None]
     whole = "whole frame (cached maps)"
@@ -545,12 +743,50 @@ def phase_profile(sponza, renderer) -> None:
         f"fetch, shading, tonemap)")
     say(f"[profile] stage {t_maps:8.3f} ms  shadow maps (8 views; once per "
         f"scene with cached maps, in every frame with dynamic casters)")
+
+    # the MSAA stages of the engine's default frame
+    depth, tri_id, attrs_m, mask, cov = graph.geometry_pass(scene, c, W, H,
+                                                           msaa=True)
+    obj = attrs_m["ids"][..., 0].to(torch.int32)
+    cap = graph.msaa_edge_cap(W, H)
+    wn = attrs_m["wnrm"]
+    vis = graph.shadow_pass(scene, c, attrs_m["wpos"],
+                            wn / torch.clamp(shadow.norm3(wn), min=1e-9)[..., None],
+                            shadow_maps=maps)
+    hdr = torch.rand((H, W, 3), device=depth.device)
+    w_sec, sec_rgb = graph._msaa_edge_neighbor(attrs_m, tri_id, depth, mask,
+                                               cov, hdr, W, H)
+    bg = c.clear_color.expand(hdr.shape)
+
+    def composite():
+        covm = cov.mean(dim=0)
+        w_pri = torch.clamp(covm - w_sec, min=0.0)
+        out = hdr * w_pri[..., None] + sec_rgb + bg * (1.0 - covm)[..., None]
+        return torch.where((mask | (covm > 0))[..., None], out, bg)
+    whole_m = "whole frame (engine default: MSAA, neighbor, cached maps)"
+    mstages = {
+        "K1-MSAA raster_gbuf_msaa":
+            lambda: raster.rasterize_gbuf(binned, W, H, msaa=True),
+        "MSAA edge resolve (detect, ladder, compaction, per-sample re-test)":
+            lambda: msaa.resolve_secondary(attrs_m["records"], tri_id, depth,
+                                           obj, mask, cov, cap),
+        "MSAA neighbor resolve (the above + neighbor color match, scatter)":
+            lambda: graph._msaa_edge_neighbor(attrs_m, tri_id, depth, mask,
+                                              cov, hdr, W, H),
+        "MSAA composite (coverage blend)": composite,
+        "MSAA shade resolve (the edge resolve + secondary shade, scatter)":
+            lambda: graph._msaa_edge_secondary(scene, c, attrs_m, tri_id, depth,
+                                               mask, cov, *vis, W, H, True),
+        whole_m: lambda: renderer.render(c, W, H, shadow_maps=maps, msaa=True),
+    }
+    for name, fn in mstages.items():
+        say(f"[profile] stage {time_ms(fn, 10):8.3f} ms  {name}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        renderer.render(c, W, H, shadow_maps=maps)   # profiler warm-up
+        renderer.render(c, W, H, shadow_maps=maps, msaa=True)  # warm-up
         torch.cuda.synchronize()
         with record_function("frames"):
             for _ in range(PROFILE_FRAMES):
-                renderer.render(c, W, H, shadow_maps=maps)
+                renderer.render(c, W, H, shadow_maps=maps, msaa=True)
             torch.cuda.synchronize()
     path = ROOT / "traces" / "sponza_trace.json"
     path.parent.mkdir(exist_ok=True)
@@ -559,8 +795,8 @@ def phase_profile(sponza, renderer) -> None:
     if busy <= 0:
         fail("the profiled frames ran nothing on the card")
     k = sum(n for _, n in rows.values())
-    say(f"[profile] trace {path.relative_to(ROOT)}: {PROFILE_FRAMES} cached-map "
-        f"frames in {window:.3f} ms wall ({window / PROFILE_FRAMES:.3f} "
+    say(f"[profile] trace {path.relative_to(ROOT)}: {PROFILE_FRAMES} default "
+        f"(MSAA, cached-map) frames in {window:.3f} ms wall ({window / PROFILE_FRAMES:.3f} "
         f"ms/frame, profiler on); card busy {busy / PROFILE_FRAMES:.3f} "
         f"ms/frame in {k // PROFILE_FRAMES} device ops; idle share "
         f"{1 - busy / window:.4f}")
@@ -582,10 +818,11 @@ def main() -> None:
     phase_build()
     sponza, renderer = load_sponza(dev)
     k3 = phase_palette(dev, sponza, renderer)
-    k1 = phase_raster(dev, sponza, renderer)
-    k2 = phase_vis(dev, sponza, renderer)
+    k1, k1_msaa = phase_raster(dev, sponza, renderer)
+    k2, k2_msaa4 = phase_vis(dev, sponza, renderer)
     phase_goldens(dev)
     phase_shadow_card_vs_cpu(dev)
+    phase_msaa_card_vs_cpu(dev)
     launches = phase_main_path(dev, card, sponza, renderer)
     if "--profile" in sys.argv[1:]:
         phase_profile(sponza, renderer)
@@ -603,6 +840,14 @@ def main() -> None:
              source="vqengine_tpu_torch/csrc/raster_vis.cu",
              replaces="vqengine_tpu/ops/raster.py:693",
              launches=launches["raster_vis"], **k2),
+        dict(name="raster_gbuf_msaa", route="cuda",
+             source="vqengine_tpu_torch/csrc/raster_gbuf.cu",
+             replaces="vqengine_tpu/ops/raster.py:1134",
+             launches=launches["raster_gbuf_msaa"], **k1_msaa),
+        dict(name="raster_vis_msaa4", route="cuda",
+             source="vqengine_tpu_torch/csrc/raster_vis.cu",
+             replaces="vqengine_tpu/ops/raster.py:811",
+             launches=launches["raster_vis_msaa4"], **k2_msaa4),
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

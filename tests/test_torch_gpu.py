@@ -10,7 +10,8 @@ import torch
 
 from vqengine_tpu_torch.engine.scene_load import load_scene
 from vqengine_tpu_torch.entry import HEIGHT, WIDTH, entry
-from vqengine_tpu_torch.ops import _backend, palette, raster, shadow
+from vqengine_tpu_torch.ops import (_backend, palette, raster, raster_probes,
+                                    shadow)
 from vqengine_tpu_torch.render import graph
 from vqengine_tpu_torch.render.renderer import VQRendererTorch
 
@@ -116,10 +117,114 @@ def test_shadowed_frame_on_card_matches_cpu(sponza_card):
     assert float((out["ldr"].cpu() - ref["ldr"])[same].abs().max()) <= 3e-4
 
 
-def test_rasterize_rejects_gbuf_records(cuda):
-    """K2 takes 16-row records only; K1's 32-row records raise."""
+@pytest.mark.parametrize("msaa", [False, True])
+def test_rasterize_rejects_gbuf_records(cuda, msaa):
+    """K2 takes 16-row records only; K1's 32-row records raise, and K1
+    rejects K2's."""
     _, (scene, consts) = entry(cuda)
     setup, extra = graph.geometry_setup_gbuf(scene, consts, WIDTH, HEIGHT)
     binned = raster.bin_triangles(setup, WIDTH, HEIGHT, extra=extra)
     with pytest.raises(ValueError):
-        raster.rasterize(binned, WIDTH, HEIGHT)
+        raster.rasterize(binned, WIDTH, HEIGHT, msaa=msaa)
+    vis = raster.bin_triangles(setup, WIDTH, HEIGHT)
+    with pytest.raises(ValueError):
+        raster.rasterize_gbuf(vis, WIDTH, HEIGHT, msaa=msaa)
+
+
+def test_raster_gbuf_msaa_kernel_bitwise(sponza_card):
+    """K1-MSAA against its plain version on the binned Sponza frame:
+    depth, tri_id, G-buffer and per-sample coverage bitwise (a closed
+    interior: every sample is covered; the silhouettes are
+    test_raster_gbuf_msaa_kernel_silhouettes')."""
+    _, r, c = sponza_card
+    setup, extra = graph.geometry_setup_gbuf(r.scene, c, 128, 64)
+    binned = raster.bin_triangles(setup, 128, 64, extra=extra)
+    before = _backend.launches["raster_gbuf_msaa"]
+    out = raster.rasterize_gbuf(binned, 128, 64, msaa=True)
+    assert _backend.launches["raster_gbuf_msaa"] == before + 1
+    plain = raster.rasterize_gbuf_plain(binned, 128, 64, msaa=True)
+    for a, b in zip(out, plain):
+        assert bitwise(a, b)
+    assert bool(((out[3] == 0) | (out[3] == 1)).all())
+
+
+def _msaa_kernel_vs_plain(binned, width, height):
+    """K1-MSAA and its plain version on binned, bitwise -> (kernel outputs,
+    partly covered pixels, sample-only winners: pixels K1-MSAA gives a
+    winner and the center-sampled K1 none)."""
+    before = _backend.launches["raster_gbuf_msaa"]
+    out = raster.rasterize_gbuf(binned, width, height, msaa=True)
+    assert _backend.launches["raster_gbuf_msaa"] == before + 1
+    plain = raster.rasterize_gbuf_plain(binned, width, height, msaa=True)
+    for a, b in zip(out, plain):
+        assert bitwise(a, b)
+    _, center, _ = raster.rasterize_gbuf(binned, width, height)
+    n = out[3].sum(0)
+    return (out, int(((n > 0) & (n < 4)).sum()),
+            int(((out[1] >= 0) & (center < 0)).sum()))
+
+
+def test_raster_gbuf_msaa_kernel_silhouettes(cuda):
+    """K1-MSAA against its plain version on HelloCube at 192x108, whose
+    silhouettes have partly covered pixels and pixels that only a sample
+    covers (key z + 1): depth, tri_id, G-buffer and coverage bitwise."""
+    s = load_scene("HelloCube", 192, 108)
+    r = VQRendererTorch(cuda)
+    r.load_scene(s.buffers)
+    c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+    setup, extra = graph.geometry_setup_gbuf(r.scene, c, 192, 108)
+    binned = raster.bin_triangles(setup, 192, 108, extra=extra)
+    _, part, sample_only = _msaa_kernel_vs_plain(binned, 192, 108)
+    assert part > 0 and sample_only > 0
+
+
+def test_raster_gbuf_msaa_kernel_probe(cuda):
+    """K1-MSAA against its plain version on ops/raster_probes.py's crafted
+    records (per-sample thresholds decided by their rounding, for the
+    coverage bits and the depth key; the key select; z = 1; records past
+    the counts): bitwise, each case reached."""
+    pb, counts = raster_probes.msaa_probe(device=cuda)
+    (depth, tri_id, _, cov), _, sample_only = _msaa_kernel_vs_plain(
+        pb, raster_probes.WIDTH, raster_probes.HEIGHT)
+    one = int(((cov.sum(0) == 1) & (tri_id >= 0)).sum())
+    assert one >= counts["thresholds"] // 4 and sample_only > 0
+    assert int(((depth == 0) & (tri_id >= 0)).sum()) == counts["z1"]
+
+
+@pytest.mark.parametrize("view,size", [("spot", 256), ("dir", 512)])
+def test_raster_vis_msaa4_kernel_bitwise(sponza_card, view, size):
+    """K2-msaa4 against its plain version on Sponza caster views: the
+    per-sample depth and tri_id stacks bitwise."""
+    _, r, c = sponza_card
+    vp = {"spot": c.spot_caster_vps[0], "dir": c.dir_vp[0]}[view]
+    sc = r.scene
+    binned = shadow.bin_shadow_view(sc.positions, sc.item_of_vertex, c.world,
+                                    vp, sc.indices, size)
+    before = _backend.launches["raster_vis_msaa4"]
+    d, i = raster.rasterize(binned, size, size, msaa=True)
+    assert _backend.launches["raster_vis_msaa4"] == before + 1
+    d2, i2 = raster.rasterize_plain(binned, size, size, msaa=True)
+    assert tuple(d.shape) == (4, size, size)
+    assert bitwise(d, d2) and bitwise(i, i2)
+    assert bool((i != i[:1]).any())
+
+
+@pytest.mark.parametrize("mode", ["neighbor", "shade"])
+def test_msaa_frame_on_card_matches_cpu(cuda, mode):
+    """Sponza at 192x108 with MSAA and 64^2 ESM maps rendered in the frame,
+    in both edge-resolve modes: ldr within 3e-4 of the CPU where tri_id
+    agrees (>= 99.9% of pixels), the same edge saturation."""
+    s = load_scene("Sponza", 192, 108)
+    outs = []
+    for d in (cuda, torch.device("cpu")):
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+        outs.append(r.render(c, 192, 108, shadow_dims=(64, 64, 64), msaa=True,
+                             msaa_edge_resolve=mode))
+    out, ref = outs
+    same = out["tri_id"].cpu() == ref["tri_id"]
+    assert float(same.float().mean()) >= 0.999
+    assert float((out["ldr"].cpu() - ref["ldr"])[same].abs().max()) <= 3e-4
+    assert float(out["saturation"]["msaa_edges"]) == float(
+        ref["saturation"]["msaa_edges"])

@@ -165,8 +165,7 @@ def test_rasterize_gbuf_matches(front):
     np.testing.assert_allclose(g2[:, same], g[:, same], rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(msaa=True),
-                                dict(zbound=(torch.zeros(H, W),
+@pytest.mark.parametrize("kw", [dict(zbound=(torch.zeros(H, W),
                                              torch.ones(H, W)))])
 def test_rasterize_gbuf_unported_variants_raise(front, kw):
     _, _, ps, px = front

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_slice import jax_load_scene
+from test_torch_slice import compiled_rasters, jax_load_scene
 from vqengine_tpu.ops import raster as jr
 from vqengine_tpu.ops import shadow as js
 from vqengine_tpu.render import graph as jg
@@ -76,7 +76,8 @@ def _view_vps(c):
 
 @pytest.fixture(scope="module")
 def ref_views(sponza):
-    """The reference's 8 views of Sponza at S x S, op by op: the body of
+    """The reference's 8 views of Sponza at S x S, op by op (its kernel
+    compiled whole: compiled_rasters): the body of
     shadow.render_shadow_depth, keeping tri_id and the binning counters
     too -> [(depth, tri_id, overflow, demand)]."""
     _, _, jscene, jc = sponza
@@ -87,7 +88,8 @@ def ref_views(sponza):
                                            jscene.item_of_vertex, wvp)
         setup = jr.setup_triangles(clip, jscene.indices, S, S)
         binned = jr.bin_triangles(setup, S, S)
-        depth, tri_id = jr.rasterize(binned, S, S)
+        with compiled_rasters():
+            depth, tri_id = jr.rasterize(binned, S, S)
         out.append(tuple(np.asarray(a) for a in
                          (depth, tri_id, binned.overflow, binned.demand)))
     return out
@@ -135,12 +137,6 @@ def test_rasterize_matches_jax(sponza, ref_views, view):
     assert_bitwise(tri_id.numpy(), id_ref, "tri_id")
     np.testing.assert_array_equal(binned.overflow.numpy(), ov_ref)
     assert int(binned.demand) == int(dem_ref)
-
-
-def test_rasterize_msaa_raises():
-    setup = tr.setup_triangles(torch.zeros((4, 3, 4)), S, S)
-    with pytest.raises(NotImplementedError):
-        tr.rasterize(tr.bin_triangles(setup, S, S), S, S, msaa=True)
 
 
 # ---------------------------------------------------------------------------
@@ -349,14 +345,16 @@ def test_sponza_frame_matches_jax(sponza, port_maps, ref_maps):
     """A whole Sponza frame at 126x66 with the default flags (shadows on,
     ESM), shadow_dims 64, each side on its own maps (the port's from its
     render_shadow_maps, as a frame renders them; the reference's built op
-    by op), the reference frame run op by op. tri_id agrees on >= 99.9%
-    of pixels (all, measured) and ldr lies within 3e-4 where it agrees,
-    the multichip bar of the reference (tests/test_multichip.py:73)."""
+    by op), the reference frame run op by op (its raster kernel compiled
+    whole: compiled_rasters). tri_id agrees on >= 99.9% of pixels (all,
+    measured) and ldr lies within 3e-4 where it agrees, the multichip bar
+    of the reference (tests/test_multichip.py:73)."""
     r, tc, jscene, jc = sponza
     out = r.render(tc, W, H, shadow_dims=DIMS, shadow_maps=port_maps["esm"])
-    ref = jg.render_forward(jscene, jc, W, H, shadow_dims=DIMS,
-                            shadow_maps={k: jnp.asarray(v)
-                                         for k, v in ref_maps["esm"].items()})
+    with compiled_rasters():
+        ref = jg.render_forward(jscene, jc, W, H, shadow_dims=DIMS,
+                                shadow_maps={k: jnp.asarray(v)
+                                             for k, v in ref_maps["esm"].items()})
     ldr = out["ldr"].numpy()
     assert ldr.shape == (H, W, 3) and np.isfinite(ldr).all()
     same = out["tri_id"].numpy() == np.asarray(ref["tri_id"])

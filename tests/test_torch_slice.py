@@ -7,7 +7,9 @@ nor the JAX package.
 Each side loads its scenes with its own host modules: the port's Light
 objects carry the port's ELightType, so handing them to the JAX package
 (or the reverse) would drop every light."""
+import contextlib
 import dataclasses
+import functools
 import subprocess
 import sys
 import types
@@ -18,6 +20,8 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
+import jax
+from vqengine_tpu.ops import raster as jr
 from vqengine_tpu.render import graph as jg
 from vqengine_tpu.render.renderer import VQRendererTPU
 from vqengine_tpu.render.scene_buffers import assemble_scene
@@ -49,6 +53,41 @@ def leaves(dc) -> dict:
 def bits(a) -> np.ndarray:
     a = np.asarray(a)
     return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
+_REF_K1, _REF_K2 = jr.rasterize_gbuf, jr.rasterize
+
+
+@functools.cache
+def _compiled(kernel, width: int, height: int, msaa: bool):
+    return jax.jit(functools.partial(kernel, width=width, height=height,
+                                     msaa=msaa))
+
+
+def _k1(binned, width, height, msaa=False, zbound=None):
+    assert zbound is None
+    return _compiled(_REF_K1, width, height, msaa)(binned)
+
+
+def _k2(binned, width, height, msaa=False):
+    return _compiled(_REF_K2, width, height, msaa)(binned)
+
+
+@contextlib.contextmanager
+def compiled_rasters():
+    """The reference's raster kernels (raster.rasterize_gbuf, K1, and
+    raster.rasterize, K2) compiled whole under jax.jit while the context
+    lasts, wherever the JAX package calls them. An interpret-mode kernel
+    body is compiled in either case, so the outputs are the op-by-op
+    call's bit for bit (checked on the crossing quads, HelloCube, the
+    entry frame, Sponza's frame and caster views, and crafted records),
+    and a call takes a fraction of its op-by-op time; the code around the
+    kernels still runs op by op (jit would contract its multiply-adds)."""
+    jr.rasterize_gbuf, jr.rasterize = _k1, _k2
+    try:
+        yield
+    finally:
+        jr.rasterize_gbuf, jr.rasterize = _REF_K1, _REF_K2
 
 
 def jax_load_scene(name: str, width: int, height: int):
@@ -133,9 +172,11 @@ def test_entry_ldr_matches_jax():
     """entry() at 256x128: tri_id agrees on >= 99.9% of pixels (all,
     measured) and ldr within 3e-4 where it agrees, the multichip bar of
     the reference (tests/test_multichip.py:73). The reference runs op by
-    op, as that test runs it (measured: max 3e-7)."""
+    op, as that test runs it (measured: max 3e-7), its raster kernel
+    compiled whole (compiled_rasters)."""
     scene, consts = graft._tiny_scene_and_consts(WIDTH, HEIGHT)
-    ref = jg.render_forward(scene, consts, WIDTH, HEIGHT)
+    with compiled_rasters():
+        ref = jg.render_forward(scene, consts, WIDTH, HEIGHT)
     fn, (ts, tc) = entry(CPU)
     ldr = fn(ts, tc).numpy()
     out = tg.render_forward(ts, tc, WIDTH, HEIGHT)
@@ -150,10 +191,12 @@ def test_entry_ldr_matches_jax():
 
 
 @pytest.mark.parametrize("name,golden", [("HelloTriangle", "hello_triangle"),
-                                         ("HelloCube", "hello_cube")])
+                                         ("HelloCube", "hello_cube"),
+                                         ("HelloCube", "hello_cube_msaa")])
 def test_golden(name, golden):
     """The golden bars of tests/test_golden.py:224-245, with the golden
-    setup: the scene's own camera and light gizmos on."""
+    setup: the scene's own camera and light gizmos on (and MSAA with the
+    default edge resolve for hello_cube_msaa)."""
     scores = golden_scores(golden, render_golden(golden, CPU))
     assert scores["ok"], scores
 
@@ -167,8 +210,9 @@ r = VQRendererTorch(torch.device("cpu"))
 r.load_scene(s.buffers)
 consts = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
 assert consts.point_casters.shape[0] == 1 and consts.dir_vp.shape[0] == 1
-out = r.render(consts, 64, 64, shadow_dims=(32, 32, 32))
+out = r.render(consts, 64, 64, shadow_dims=(32, 32, 32), msaa=True)
 assert tuple(out["ldr"].shape) == (64, 64, 3)
+assert "msaa_edges" in out["saturation"]
 assert bool(torch.isfinite(out["ldr"]).all())
 assert float((out["tri_id"] >= 0).float().mean()) > 0.05
 bad = [m for m in sys.modules
@@ -180,8 +224,8 @@ print("ok")
 
 def test_port_renders_without_jax():
     """A shadowed Sponza frame (all three caster kinds, maps rendered in
-    the frame) in a fresh process: neither jax nor any module of the JAX
-    package gets imported."""
+    the frame) with MSAA and the edge resolve, in a fresh process: neither
+    jax nor any module of the JAX package gets imported."""
     res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
@@ -194,10 +238,10 @@ def entry_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(env=object()), dict(textures=object()), dict(msaa=True),
-    dict(enable_ssao=True), dict(enable_ssr=True),
-    dict(enable_motion_vectors=True), dict(enable_alpha_mask=True),
-    dict(scene_transparent="scene"), dict(cas_sharpness=0.5),
+    dict(env=object()), dict(textures=object()), dict(enable_ssao=True),
+    dict(enable_ssr=True), dict(enable_motion_vectors=True),
+    dict(enable_alpha_mask=True), dict(scene_transparent="scene"),
+    dict(cas_sharpness=0.5),
     dict(out_width=2 * WIDTH, out_height=2 * HEIGHT)])
 def test_unported_features_raise(entry_cpu, kw):
     scene, consts = entry_cpu

@@ -1,24 +1,31 @@
-// K1 G-buffer raster, non-MSAA and unbounded.
+// K1 G-buffer raster, unbounded, in its non-MSAA and MSAA 4x variants.
 //
 // Replaces the Pallas kernel of vqengine_tpu/ops/raster.py
-// (_make_gbuf_kernel(None, bounded=False), launched by rasterize_gbuf).
+// (_make_gbuf_kernel(None, bounded=False) and
+// _make_gbuf_kernel(MSAA4_OFFSETS, bounded=False), built by
+// _get_gbuf_kernel and launched by rasterize_gbuf).
 //
 // What it computes. One CTA per 16x128-pixel tile streams groups of 128
 // records (32 f32 each, pair-major rows of the sorted pair array) and
-// keeps each pixel's nearest covering record (raster_common.cuh: stream
-// order, tie-break and the split plane arithmetic). After the stream,
-// each pixel reads its winner's rows 0-29 from global memory and resolves
-// perspective barycentrics, the bf16-packed normal/tangent pairs and uv,
-// and the material, object and item ids, writing depth, tri_id and 16
-// G-buffer channels straight into [H, W] and [16, H, W] (ragged edge
-// masked, background zeroed). The resolve rounds two multiply-adds as one
+// keeps each pixel's winner (raster_common.cuh: stream order, tie-break,
+// the split plane arithmetic and, for MSAA, the per-sample thresholds,
+// the depth key z / z + 1 / 4 and the sticky coverage bits). After the
+// stream the MSAA variant turns the key back into a depth (key < 1 stays,
+// key < 3 loses the + 1, the clear value 4 becomes 1). Each pixel then
+// reads its winner's rows 0-29 from global memory and resolves, at the
+// pixel center, perspective barycentrics, the bf16-packed normal/tangent
+// pairs and uv, and the material, object and item ids, writing depth,
+// tri_id and 16 G-buffer channels straight into [H, W] and [16, H, W]
+// (ragged edge masked, background zeroed), and with MSAA the coverage
+// [4, H, W] in {0, 1}. The resolve rounds two multiply-adds as one
 // (fma_f64), as the reference does on the CPU, where its compiler
 // contracts them.
 //
-// Bound. Arithmetic: about 4 planes x 9 flops per record per pixel, over
+// Bound. Arithmetic: 4 planes x 9 flops per record per pixel (36), over
 // every record of every group a tile streams (most of them do not cover
-// the pixel). Memory traffic is small (a group's 12 plane rows once per
-// tile, the winner's 30 rows once per pixel, the outputs once).
+// the pixel); the MSAA variant adds 12 threshold compares and the z + 1
+// (49). Memory traffic is small (a group's 12 plane rows once per tile,
+// the winner's 30 rows once per pixel, the outputs once).
 // Design: the shared tile stream, then the resolve in registers. No
 // tensor cores, no TMA: simple first.
 #include "raster_common.cuh"
@@ -31,12 +38,7 @@ constexpr int REC = 32;          // floats per record
 constexpr int GBUF_OUT = 16;
 constexpr float NRM_PACK_BIAS = 3.0f;
 
-// a*b + c rounded as the plain version's _fma rounds it: the product is
-// exact in f64, then one f64 add and one rounding to f32.
-__device__ __forceinline__ float fma_f64(float a, float b, float c) {
-  return __double2float_rn(__dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
-}
-
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 raster_gbuf_kernel(const float* __restrict__ pairs,
                    const float* __restrict__ gpairs,
@@ -45,8 +47,8 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
                    const int* __restrict__ gmeta,
                    int tiles_x, int width, int height,
                    float* __restrict__ depth_out, int* __restrict__ id_out,
-                   float* __restrict__ gbuf_out) {
-  __shared__ float consts[GROUP][PLANE_CONSTS];
+                   float* __restrict__ gbuf_out, float* __restrict__ cov_out) {
+  __shared__ float consts[GROUP][ModeInfo<MODE>::NC];
   const int tx = blockIdx.x, ty = blockIdx.y;
   const int lx = threadIdx.x % TILE_W;
   const int row0 = (threadIdx.x / TILE_W) * ROWS;
@@ -54,8 +56,9 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
   const float y0 = (float)(ty * TILE_H);
   float depth[ROWS];
   int win[ROWS];
-  stream_tile<REC>(pairs, gpairs, starts, rstarts, gmeta, tx, ty, tiles_x,
-                   consts, lx, row0, depth, win);
+  unsigned cov = 0;
+  stream_tile<REC, MODE>(pairs, gpairs, starts, rstarts, gmeta, tx, ty,
+                         tiles_x, consts, lx, row0, depth, win, &cov);
 
   const int x = tx * TILE_W + lx;
   if (x >= width) return;
@@ -65,7 +68,13 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
     const int y = ty * TILE_H + row0 + i;
     if (y >= height) break;
     const long long o = (long long)y * width + x;
-    depth_out[o] = depth[i];
+    float d = depth[i];
+    if constexpr (MODE == COVERAGE) {
+      d = d < 1.0f ? d : d < 3.0f ? __fsub_rn(d, 1.0f) : 1.0f;
+      for (int s = 0; s < NS; ++s)
+        cov_out[s * plane + o] = (cov >> (NS * i + s)) & 1u ? 1.0f : 0.0f;
+    }
+    depth_out[o] = d;
     const int w = win[i];
     if (w == -1) {
       id_out[o] = -1;
@@ -112,6 +121,21 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
   }
 }
 
+template <int MODE>
+int launch(const void* pairs, const void* gpairs, const void* starts,
+           const void* rstarts, const void* gmeta, int tiles_x, int tiles_y,
+           int width, int height, void* depth, void* tri_id, void* gbuf,
+           void* cov, void* stream) {
+  if (tiles_x > 0 && tiles_y > 0) {
+    raster_gbuf_kernel<MODE><<<dim3(tiles_x, tiles_y), THREADS, 0,
+                               (cudaStream_t)stream>>>(
+        (const float*)pairs, (const float*)gpairs, (const int*)starts,
+        (const int*)rstarts, (const int*)gmeta, tiles_x, width, height,
+        (float*)depth, (int*)tri_id, (float*)gbuf, (float*)cov);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int vq_raster_gbuf(const void* pairs, const void* gpairs,
@@ -119,12 +143,18 @@ extern "C" int vq_raster_gbuf(const void* pairs, const void* gpairs,
                               const void* gmeta, int tiles_x, int tiles_y,
                               int width, int height, void* depth,
                               void* tri_id, void* gbuf, void* stream) {
-  if (tiles_x > 0 && tiles_y > 0) {
-    raster_gbuf_kernel<<<dim3(tiles_x, tiles_y), THREADS, 0,
-                         (cudaStream_t)stream>>>(
-        (const float*)pairs, (const float*)gpairs, (const int*)starts,
-        (const int*)rstarts, (const int*)gmeta, tiles_x, width, height,
-        (float*)depth, (int*)tri_id, (float*)gbuf);
-  }
-  return (int)cudaGetLastError();
+  return launch<CENTER>(pairs, gpairs, starts, rstarts, gmeta, tiles_x,
+                        tiles_y, width, height, depth, tri_id, gbuf, nullptr,
+                        stream);
+}
+
+extern "C" int vq_raster_gbuf_msaa(const void* pairs, const void* gpairs,
+                                   const void* starts, const void* rstarts,
+                                   const void* gmeta, int tiles_x,
+                                   int tiles_y, int width, int height,
+                                   void* depth, void* tri_id, void* gbuf,
+                                   void* cov, void* stream) {
+  return launch<COVERAGE>(pairs, gpairs, starts, rstarts, gmeta, tiles_x,
+                          tiles_y, width, height, depth, tri_id, gbuf, cov,
+                          stream);
 }

@@ -20,17 +20,21 @@ from .scene_load import load_scene
 
 GOLDEN_DIR = Path(__file__).resolve().parent.parent.parent / "tests" / "goldens"
 WIDTH, HEIGHT = 192, 108
-SCENES = {"hello_triangle": "HelloTriangle", "hello_cube": "HelloCube"}
+# golden -> (scene, render flags), as tests/test_golden.py configures them
+SCENES = {"hello_triangle": ("HelloTriangle", {}),
+          "hello_cube": ("HelloCube", {}),
+          "hello_cube_msaa": ("HelloCube", {"msaa": True})}
 SSIM_MIN, MEAN_MAE_MAX, BLOCK_MAE_MAX = 0.985, 0.01, 0.08
 
 
 def render_golden(golden: str, device: torch.device) -> np.ndarray:
     """-> ldr [HEIGHT, WIDTH, 3] of the golden's scene, on the host."""
-    s = load_scene(SCENES[golden], WIDTH, HEIGHT, draw_light_gizmos=True)
+    name, flags = SCENES[golden]
+    s = load_scene(name, WIDTH, HEIGHT, draw_light_gizmos=True)
     r = VQRendererTorch(device)
     r.load_scene(s.buffers)
     consts = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
-    return r.render(consts, WIDTH, HEIGHT)["ldr"].cpu().numpy()
+    return r.render(consts, WIDTH, HEIGHT, **flags)["ldr"].cpu().numpy()
 
 
 def golden_scores(golden: str, img: np.ndarray) -> dict:

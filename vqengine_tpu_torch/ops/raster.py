@@ -15,11 +15,13 @@ depth tie depends on it:
   sorted pair array, with killed records as padding;
 - the split-eval plane arithmetic (bf16 hi/lo parts against tile-local
   pixel coordinates, +2^-15 edge bias), evaluated with the same order of
-  additions.
+  additions and the same fused multiply-adds (the reference's kernel
+  bodies are compiled on the CPU, which contracts some of them).
 
-Ported: the non-MSAA, unbounded G-buffer variant of K1 and the
-center-sample variant of K2 (the shadow-map raster); K1's MSAA and
-depth-bounded variants and K2's MSAA variant are still to come.
+Ported: K1's non-MSAA and MSAA 4x variants (unbounded), K2's center
+(the shadow-map raster) and MSAA 4x variants, and the record evaluation
+the MSAA edge resolve runs outside the kernels; K1's depth-bounded
+variants are still to come.
 Records here are pair-major ``[P, 32]`` (K1) or ``[P, 16]`` (K2) rows; the
 reference stores ``[NG, R, 128]`` lane blocks of the same values.
 """
@@ -47,6 +49,11 @@ GBUF_VATTR = 5        # per-vertex attr rows: packed nrm/tan(3) uv(2)
 NRM_PACK_BIAS = 3.0
 GBUF_OUT = 16         # nrm(3) tan(3) uv(2) mid obj item, padded to 16
 EDGE_BIAS = 2.0 ** -15
+# D3D standard 4x MSAA sample offsets (dx, dy) from the pixel center, in
+# pixels (the reference renders fixed 4x MSAA)
+MSAA4_OFFSETS = ((-2 / 16, -6 / 16), (6 / 16, -2 / 16),
+                 (-6 / 16, 2 / 16), (2 / 16, 6 / 16))
+MSAA_KEY_CLEAR = 4.0  # K1-MSAA's depth-key carry: above z and z + 1
 
 
 def cdiv(a: int, b: int) -> int:
@@ -68,6 +75,44 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     exact in f64, so only the f64 sum and the final f32 rounding remain
     (equal to a true FMA except for rare double-rounding ties)."""
     return (a.double() * b.double() + c.double()).float()
+
+
+def sample_offset(a: torch.Tensor, b: torch.Tensor, dx: float,
+                  dy: float) -> torch.Tensor:
+    """a*dx + b*dy for a sample offset (dx, dy), rounded as the reference's
+    K2-msaa4 rounds it on the CPU (its interpret-mode body is compiled,
+    and XLA contracts the first product into a fused
+    multiply-add where its constant is positive; a product with a
+    negative constant rounds on its own). For MSAA4_OFFSETS that is an
+    FMA in sample 1 and two rounded products in samples 0, 2 and 3
+    (where one of the two products is exact, dx or dy being +-1/8)."""
+    if dx > 0:
+        return _fma(a, torch.full_like(a, dx), b * dy)
+    return a * dx + b * dy
+
+
+# K1-MSAA's threshold t = -(e_x dx + e_y dy) of edge i at sample s rounds
+# once (the inexact product fused into the sum) or twice (both products
+# rounded), as the reference's compiled kernel body contracts it on the
+# CPU; it contracts the same expression one way where it sets the sticky
+# coverage bits and another where it tests "some sample covered" for the
+# depth key. [sample][edge] -> fused, measured per sample and edge with
+# the crafted records of raster_probes.py (neither is sample_offset's
+# rule).
+MSAA_COVERAGE_FUSED = ((True, False, False), (True, True, True),
+                       (False, False, False), (True, False, False))
+MSAA_KEY_FUSED = ((True, False, False), (False, False, False),
+                  (False, False, False), (True, False, False))
+
+
+def msaa_threshold(a: torch.Tensor, b: torch.Tensor, s: int,
+                   fused: bool) -> torch.Tensor:
+    """-(a*dx + b*dy) for sample s of MSAA4_OFFSETS, rounded once (fused)
+    or as two rounded products added."""
+    dx, dy = MSAA4_OFFSETS[s]
+    if fused:
+        return -(a.double() * dx + b.double() * dy).float()
+    return -(a * dx + b * dy)
 
 
 def matvec_fma(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -472,8 +517,9 @@ def _plane_eval_split(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     evaluated columns / rows -> [b0, b1, b2, z], each [C, G, TILE_H * NX]
     (row-major pixels). Per plane: b = ((hx*X + hy*Y) + hw) +
     ((lx*X + ly*Y) + lw), where (h, l) are the bf16 hi/lo parts of (ex/2,
-    ey/2, ew + ex*x0 + ey*y0 [+ the 2^-15 edge bias]); every product is
-    exact in f32, so only this order of additions decides the rounding."""
+    ey/2, fma(ey, y0, fma(ex, x0, ew)) [+ the 2^-15 edge bias]); every
+    product against X and Y is exact in f32, so only this order of
+    additions decides the rounding."""
     out = []
     x0 = x0[:, None]
     y0 = y0[:, None]
@@ -482,7 +528,10 @@ def _plane_eval_split(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
         ex, ey, ew = rec[..., 3 * p], rec[..., 3 * p + 1], rec[..., 3 * p + 2]
         ex2 = ex * 0.5
         ey2 = ey * 0.5
-        ew2 = ew + ex * x0 + ey * y0
+        # XLA contracts the reference's ew + ex*x0 + ey*y0 into two
+        # fused multiply-adds on the CPU (tile origins past 128 make
+        # the products inexact)
+        ew2 = _fma(ey, y0, _fma(ex, x0, ew))
         if p < 3:
             ew2 = ew2 + ((ex2.abs() * (2.0 * TILE_W) + ey2.abs() * (2.0 * TILE_H)
                           + ew2.abs()) * EDGE_BIAS)
@@ -499,6 +548,15 @@ def _plane_eval_split(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
               + lw[..., None, None])
         out.append((hi + lo).reshape(c, g, -1))
     return out
+
+
+def _unpack_attrs(a: torch.Tensor) -> torch.Tensor:
+    """A corner's record columns [..., 5] (three bf16 (normal + 3, tangent)
+    words, u, v) -> [..., 8] normal, tangent, uv."""
+    pw = a[..., 0:3].contiguous().view(torch.int32).to(torch.int64)
+    nrm = _u32_as_f32(pw & 0xFFFF0000) - NRM_PACK_BIAS
+    tan = _u32_as_f32((pw & 0xFFFF) << 16)
+    return torch.cat([nrm, tan, a[..., 3:5]], dim=-1)
 
 
 def _resolve(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
@@ -519,13 +577,7 @@ def _resolve(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     lsum = torch.where(lsum < 1e-30, torch.full_like(lsum, 1e-30), lsum)
     ls = [v / lsum for v in ls]
 
-    def unpack(a):                   # [..., 5] -> [..., 8]
-        pw = a[..., 0:3].contiguous().view(torch.int32).to(torch.int64)
-        nrm = _u32_as_f32(pw & 0xFFFF0000) - NRM_PACK_BIAS
-        tan = _u32_as_f32((pw & 0xFFFF) << 16)
-        return torch.cat([nrm, tan, a[..., 3:5]], dim=-1)
-
-    a = [unpack(rows[..., 13 + 5 * v:18 + 5 * v]) for v in range(3)]
+    a = [_unpack_attrs(rows[..., 13 + 5 * v:18 + 5 * v]) for v in range(3)]
     interp = _fma(a[2], ls[2][..., None],
                   a[0] * ls[0][..., None] + a[1] * ls[1][..., None])
     mi = rows[..., 28].to(torch.int32)
@@ -537,18 +589,76 @@ def _resolve(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     return torch.where(is_bg[..., None], zero, g)
 
 
-def _stream_chunks(binned: BinnedTriangles, allrec: torch.Tensor, width: int):
-    """The tile stream of both raster kernels, in plain PyTorch: all tiles
+CENTER, COVERAGE, SAMPLES4 = "center", "coverage", "samples4"
+
+
+def _group_keys(mode: str, rec: torch.Tensor, b0, b1, b2, z, live, cov):
+    """One streamed group's depth keys, [C, G, NPX] per carry, in the
+    reference kernels' arithmetic; records that do not compete get a key
+    at or above the carry's clear value. rec [C, G, 12] the group's plane
+    rows, live [C] whether the tile streams this group (a padding entry of
+    _group_sequences does not).
+    - CENTER (K1, K2): key z where b0, b1, b2, z >= 0, else 2.
+    - COVERAGE (K1-MSAA): per-sample thresholds t_i = -(e_ix dx + e_iy dy)
+      from the unsplit rows, a sample covered where b_i(center) >= t_i and
+      0 <= z <= 1; key z where the center is covered, z + 1 where only a
+      sample is, else 4; cov [C, 4, NPX] takes each sample's coverage by
+      any record of the group (sticky). The thresholds round as
+      MSAA_COVERAGE_FUSED for the coverage bits and MSAA_KEY_FUSED for
+      the key's "some sample covered".
+    - SAMPLES4 (K2-msaa4): per sample, b_i + (e_ix dx + e_iy dy) added to
+      the split values, covered where all four are >= 0; key z_s, else 2.
+      One key per sample."""
+    two = torch.tensor(2.0, device=z.device)
+    if mode == CENTER:
+        cover = torch.minimum(torch.minimum(b0, b1), torch.minimum(b2, z)) >= 0
+        return [torch.where(cover, z, two)]
+    planes = (b0, b1, b2, z)
+    if mode == COVERAGE:
+        zok = (z >= 0) & (z <= 1)
+        cover_any = torch.zeros_like(zok)
+        for s in range(len(MSAA4_OFFSETS)):
+            c = k = zok
+            for i in range(3):
+                a, b = rec[..., 3 * i], rec[..., 3 * i + 1]
+                t = msaa_threshold(a, b, s, MSAA_COVERAGE_FUSED[s][i])
+                c = c & (planes[i] >= t[..., None])
+                if MSAA_KEY_FUSED[s][i] != MSAA_COVERAGE_FUSED[s][i]:
+                    t = msaa_threshold(a, b, s, MSAA_KEY_FUSED[s][i])
+                k = k & (planes[i] >= t[..., None])
+            cover_any = cover_any | k
+            cov[:, s] |= c.any(dim=1) & live[:, None]
+        cover_c = (b0 >= 0) & (b1 >= 0) & (b2 >= 0) & zok
+        return [torch.where(cover_c, z, torch.where(
+            cover_any, z + 1.0, torch.tensor(MSAA_KEY_CLEAR, device=z.device)))]
+    keys = []
+    for dx, dy in MSAA4_OFFSETS:
+        bs = [planes[i] + sample_offset(rec[..., 3 * i], rec[..., 3 * i + 1],
+                                        dx, dy)[..., None] for i in range(4)]
+        cover = torch.minimum(torch.minimum(bs[0], bs[1]),
+                              torch.minimum(bs[2], bs[3])) >= 0
+        keys.append(torch.where(cover, bs[3], two))
+    return keys
+
+
+def _stream_chunks(binned: BinnedTriangles, allrec: torch.Tensor, width: int,
+                   mode: str = CENTER):
+    """The tile stream of the raster kernels, in plain PyTorch: all tiles
     of a chunk step through their group streams together; a group's
-    winner is its first covered minimum and replaces the carry only if
-    strictly nearer, as in the reference kernels. allrec is
+    winner is its first minimum key (_group_keys) and replaces the carry
+    only if strictly nearer, as in the reference kernels. allrec is
     cat([gpairs, pairs]). Yields per chunk (tiles [C], x0 [C], y0 [C],
-    depth [C, NPX], win [C, NPX] int64: the winner's row in allrec, -1 =
-    none). A frame narrower than one tile evaluates only its own columns
-    (the others are cropped away: depth 1, win -1)."""
+    depth [C, K, NPX], win [C, K, NPX] int64: the winner's row in allrec,
+    -1 = none; cov [C, 4, NPX] bool or None), K carries: 4 in SAMPLES4
+    mode, else 1. depth is the carry: the depth key in COVERAGE mode
+    (cleared to 4), else the depth (cleared to 1). A frame narrower than
+    one tile evaluates only its own columns (the others are cropped away:
+    depth at its clear value, win -1, no coverage)."""
     dev = allrec.device
     nt = binned.tiles_x * binned.tiles_y
     nx = min(TILE_W, width) if binned.tiles_x == 1 else TILE_W
+    nk = 4 if mode == SAMPLES4 else 1
+    clear = MSAA_KEY_CLEAR if mode == COVERAGE else 1.0
     # tiles stepped together; each plane temporary is [chunk, GROUP, NPX]
     # f32, 1 MiB per tile, so the CPU steps fewer at a time
     chunk = 64 if dev.type == "cuda" else 16
@@ -557,34 +667,37 @@ def _stream_chunks(binned: BinnedTriangles, allrec: torch.Tensor, width: int):
     xs = 2.0 * torch.arange(nx, device=dev, dtype=torch.float32) + 1.0
     ys = 2.0 * torch.arange(TILE_H, device=dev, dtype=torch.float32) + 1.0
     sub = torch.arange(GROUP, device=dev)[None, :, None]
-    two = torch.tensor(2.0, device=dev)
     for c0 in range(0, nt, chunk):
         tiles = torch.arange(c0, min(c0 + chunk, nt), device=dev)
         x0 = ((tiles % binned.tiles_x) * TILE_W).to(torch.float32)
         y0 = ((tiles // binned.tiles_x) * TILE_H).to(torch.float32)
         npx = TILE_H * nx
-        depth = torch.ones((len(tiles), npx), dtype=torch.float32, device=dev)
-        win = torch.full((len(tiles), npx), -1, dtype=torch.int64, device=dev)
+        depth = torch.full((len(tiles), nk, npx), clear, dtype=torch.float32,
+                           device=dev)
+        win = torch.full((len(tiles), nk, npx), -1, dtype=torch.int64, device=dev)
+        cov = (torch.zeros((len(tiles), 4, npx), dtype=torch.bool, device=dev)
+               if mode == COVERAGE else None)
         for s in range(s_max):
             g = seq[tiles, s]
+            live = g >= 0
             rec = groups[g.clamp(min=0), :, :12]
             b0, b1, b2, z = _plane_eval_split(rec, x0, y0, xs, ys)
-            cover = torch.minimum(torch.minimum(b0, b1), torch.minimum(b2, z)) >= 0
-            zm = torch.where(cover, z, two)
-            zmin = zm.min(dim=1).values
-            amin = torch.where(zm == zmin[:, None], sub, GROUP).min(dim=1).values
-            upd = (g[:, None] >= 0) & (zmin < depth)
-            depth = torch.where(upd, zmin, depth)
-            win = torch.where(upd, g[:, None] * GROUP + amin, win)
+            keys = _group_keys(mode, rec, b0, b1, b2, z, live, cov)
+            for k, zm in enumerate(keys):
+                zmin = zm.min(dim=1).values
+                amin = torch.where(zm == zmin[:, None], sub, GROUP).min(dim=1).values
+                upd = live[:, None] & (zmin < depth[:, k])
+                depth[:, k] = torch.where(upd, zmin, depth[:, k])
+                win[:, k] = torch.where(upd, g[:, None] * GROUP + amin, win[:, k])
         if nx < TILE_W:
-            full_d = torch.ones((len(tiles), TILE_H, TILE_W), dtype=torch.float32,
-                                device=dev)
-            full_w = torch.full((len(tiles), TILE_H, TILE_W), -1,
-                                dtype=torch.int64, device=dev)
-            full_d[:, :, :nx] = depth.view(-1, TILE_H, nx)
-            full_w[:, :, :nx] = win.view(-1, TILE_H, nx)
-            depth, win = full_d.view(-1, NPX), full_w.view(-1, NPX)
-        yield tiles, x0, y0, depth, win
+            def widen(a, fill):
+                full = torch.full((*a.shape[:2], TILE_H, TILE_W), fill,
+                                  dtype=a.dtype, device=dev)
+                full[..., :nx] = a.view(*a.shape[:2], TILE_H, nx)
+                return full.view(*a.shape[:2], NPX)
+            depth, win = widen(depth, clear), widen(win, -1)
+            cov = None if cov is None else widen(cov, False)
+        yield tiles, x0, y0, depth, win, cov
 
 
 def _untile(a: torch.Tensor, binned: BinnedTriangles, width: int,
@@ -602,11 +715,23 @@ def _winner_ids(allrec: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     return torch.where(win < 0, BG_ID, allrec[win.clamp(min=0), 12].to(torch.int32))
 
 
-def rasterize_gbuf_plain(binned: BinnedTriangles, width: int, height: int):
+def unbias_msaa_key(key: torch.Tensor) -> torch.Tensor:
+    """K1-MSAA's depth key -> depth: [0, 1) center-covered stays, [1, 3)
+    sample-only drops the + 1, the clear value 4 becomes 1 (background).
+    A center-covered fragment at exactly z = 1 (key 1.0) so becomes depth
+    0, as in the reference."""
+    return torch.where(key < 1.0, key,
+                       torch.where(key < 3.0, key - 1.0, torch.ones_like(key)))
+
+
+def rasterize_gbuf_plain(binned: BinnedTriangles, width: int, height: int,
+                         msaa: bool = False):
     """Plain PyTorch version of kernel K1: the shared tile stream, then the
-    winner's resolve. -> (depth [H, W], tri_id [H, W] int32,
-    gbuf [GBUF_OUT, H, W])."""
-    _backend.count_plain("raster_gbuf", binned.pairs)
+    winner's resolve at the pixel center. -> (depth [H, W], tri_id [H, W]
+    int32, gbuf [GBUF_OUT, H, W]) and with msaa the per-sample sticky
+    coverage [4, H, W] f32 in {0, 1} (MSAA4_OFFSETS)."""
+    name = "raster_gbuf_msaa" if msaa else "raster_gbuf"
+    _backend.count_plain(name, binned.pairs)
     dev = binned.pairs.device
     nt = binned.tiles_x * binned.tiles_y
     allrec = torch.cat([binned.gpairs, binned.pairs], dim=0)
@@ -616,16 +741,27 @@ def rasterize_gbuf_plain(binned: BinnedTriangles, width: int, height: int):
     depth_t = torch.empty((nt, NPX), dtype=torch.float32, device=dev)
     id_t = torch.empty((nt, NPX), dtype=torch.int32, device=dev)
     gbuf_t = torch.empty((nt, NPX, GBUF_OUT), dtype=torch.float32, device=dev)
-    for tiles, x0, y0, depth, win in _stream_chunks(binned, allrec, width):
+    cov_t = (torch.empty((nt, NPX, 4), dtype=torch.float32, device=dev)
+             if msaa else None)
+    mode = COVERAGE if msaa else CENTER
+    for tiles, x0, y0, depth, win, cov in _stream_chunks(binned, allrec, width,
+                                                         mode):
+        depth, win = depth[:, 0], win[:, 0]
         rows = allrec[win.clamp(min=0), :SEL_ROWS]
         px = (lxf + x0[:, None]) + 0.5
         py = (lyf + y0[:, None]) + 0.5
-        depth_t[tiles] = depth
+        depth_t[tiles] = unbias_msaa_key(depth) if msaa else depth
         id_t[tiles] = _winner_ids(allrec, win)
         gbuf_t[tiles] = _resolve(rows, px, py, win < 0)
+        if msaa:
+            cov_t[tiles] = cov.transpose(1, 2).to(torch.float32)
     gbuf = _untile(gbuf_t, binned, width, height).permute(2, 0, 1).contiguous()
-    return (_untile(depth_t, binned, width, height).contiguous(),
-            _untile(id_t, binned, width, height).contiguous(), gbuf)
+    out = (_untile(depth_t, binned, width, height).contiguous(),
+           _untile(id_t, binned, width, height).contiguous(), gbuf)
+    if msaa:
+        cov = _untile(cov_t, binned, width, height).permute(2, 0, 1).contiguous()
+        return out + (cov,)
+    return out
 
 
 def _check_binned(name: str, binned: BinnedTriangles, rows: int, width: int,
@@ -650,7 +786,15 @@ def _check_binned(name: str, binned: BinnedTriangles, rows: int, width: int,
         raise ValueError(f"{name}: frame size does not match tiles")
 
 
-def _rasterize_gbuf_cuda(binned: BinnedTriangles, width: int, height: int):
+def _binned_args(binned: BinnedTriangles, width: int, height: int) -> tuple:
+    return (binned.pairs.data_ptr(), binned.gpairs.data_ptr(),
+            binned.starts.data_ptr(), binned.rstarts.data_ptr(),
+            binned.gmeta.data_ptr(), binned.tiles_x, binned.tiles_y, width,
+            height)
+
+
+def _rasterize_gbuf_cuda(binned: BinnedTriangles, width: int, height: int,
+                         msaa: bool):
     _check_binned("rasterize_gbuf", binned, GBUF_ROWS, width, height)
     dev = binned.pairs.device
     f32, i32 = torch.float32, torch.int32
@@ -658,14 +802,17 @@ def _rasterize_gbuf_cuda(binned: BinnedTriangles, width: int, height: int):
     tri_id = torch.empty((height, width), dtype=i32, device=dev)
     gbuf = torch.empty((GBUF_OUT, height, width), dtype=f32, device=dev)
     lib = _backend.library()
-    code = lib.vq_raster_gbuf(
-        binned.pairs.data_ptr(), binned.gpairs.data_ptr(),
-        binned.starts.data_ptr(), binned.rstarts.data_ptr(),
-        binned.gmeta.data_ptr(), binned.tiles_x, binned.tiles_y, width,
-        height, depth.data_ptr(), tri_id.data_ptr(), gbuf.data_ptr(),
-        _backend.stream_of(depth))
-    _backend.check_launch("raster_gbuf", code)
-    return depth, tri_id, gbuf
+    args = _binned_args(binned, width, height) + (
+        depth.data_ptr(), tri_id.data_ptr(), gbuf.data_ptr())
+    if not msaa:
+        code = lib.vq_raster_gbuf(*args, _backend.stream_of(depth))
+        _backend.check_launch("raster_gbuf", code)
+        return depth, tri_id, gbuf
+    cov = torch.empty((4, height, width), dtype=f32, device=dev)
+    code = lib.vq_raster_gbuf_msaa(*args, cov.data_ptr(),
+                                   _backend.stream_of(depth))
+    _backend.check_launch("raster_gbuf_msaa", code)
+    return depth, tri_id, gbuf, cov
 
 
 def rasterize_gbuf(binned: BinnedTriangles, width: int, height: int,
@@ -673,17 +820,17 @@ def rasterize_gbuf(binned: BinnedTriangles, width: int, height: int,
     """G-buffer rasterization -> (depth [H, W], tri_id [H, W] int32,
     gbuf [GBUF_OUT, H, W]) with channels 0-2 world normal, 3-5 world
     tangent, 6-7 uv, 8 material id, 9 object id, 10 item id. Background
-    pixels: depth 1, tri_id -1, gbuf 0."""
-    if msaa:
-        raise NotImplementedError("rasterize_gbuf: the MSAA variant is not "
-                                  "ported yet")
+    pixels: depth 1, tri_id -1, gbuf 0. With msaa a 4th output, the
+    per-sample coverage [4, H, W] in {0, 1} (MSAA4_OFFSETS; its mean over
+    axis 0 is the silhouette blend weight), and the winner is the nearest
+    triangle covering the center, else the nearest covering any sample."""
     if zbound is not None:
         raise NotImplementedError("rasterize_gbuf: the depth-bounded "
                                   "variant is not ported yet")
     if binned.pairs.device.type == "cpu":
-        return rasterize_gbuf_plain(binned, width, height)
+        return rasterize_gbuf_plain(binned, width, height, msaa)
     if binned.pairs.is_cuda:
-        return _rasterize_gbuf_cuda(binned, width, height)
+        return _rasterize_gbuf_cuda(binned, width, height, msaa)
     raise ValueError(f"rasterize_gbuf: unsupported device {binned.pairs.device}")
 
 
@@ -691,34 +838,43 @@ def rasterize_gbuf(binned: BinnedTriangles, width: int, height: int,
 # 5. the visibility raster (kernel K2)
 # ===========================================================================
 
-def rasterize_plain(binned: BinnedTriangles, width: int, height: int):
-    """Plain PyTorch version of kernel K2 (center sample): the shared tile
-    stream. -> (depth [H, W], tri_id [H, W] int32)."""
-    _backend.count_plain("raster_vis", binned.pairs)
+def rasterize_plain(binned: BinnedTriangles, width: int, height: int,
+                    msaa: bool = False):
+    """Plain PyTorch version of kernel K2: the shared tile stream. ->
+    (depth [H, W], tri_id [H, W] int32) for the center sample, or with
+    msaa per-sample stacks [4, H, W] each (MSAA4_OFFSETS)."""
+    _backend.count_plain("raster_vis_msaa4" if msaa else "raster_vis",
+                         binned.pairs)
     dev = binned.pairs.device
     nt = binned.tiles_x * binned.tiles_y
+    nk = 4 if msaa else 1
     allrec = torch.cat([binned.gpairs, binned.pairs], dim=0)
-    depth_t = torch.empty((nt, NPX), dtype=torch.float32, device=dev)
-    id_t = torch.empty((nt, NPX), dtype=torch.int32, device=dev)
-    for tiles, _, _, depth, win in _stream_chunks(binned, allrec, width):
-        depth_t[tiles] = depth
-        id_t[tiles] = _winner_ids(allrec, win)
-    return (_untile(depth_t, binned, width, height).contiguous(),
-            _untile(id_t, binned, width, height).contiguous())
+    depth_t = torch.empty((nt, NPX, nk), dtype=torch.float32, device=dev)
+    id_t = torch.empty((nt, NPX, nk), dtype=torch.int32, device=dev)
+    for tiles, _, _, depth, win, _ in _stream_chunks(
+            binned, allrec, width, SAMPLES4 if msaa else CENTER):
+        depth_t[tiles] = depth.transpose(1, 2)
+        id_t[tiles] = _winner_ids(allrec, win).transpose(1, 2)
+    depth = _untile(depth_t, binned, width, height).permute(2, 0, 1)
+    tri_id = _untile(id_t, binned, width, height).permute(2, 0, 1)
+    if not msaa:
+        depth, tri_id = depth[0], tri_id[0]
+    return depth.contiguous(), tri_id.contiguous()
 
 
-def _rasterize_cuda(binned: BinnedTriangles, width: int, height: int):
+def _rasterize_cuda(binned: BinnedTriangles, width: int, height: int,
+                    msaa: bool):
     _check_binned("rasterize", binned, PAIR_ROWS, width, height)
     dev = binned.pairs.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
+    shape = (4, height, width) if msaa else (height, width)
+    depth = torch.empty(shape, dtype=torch.float32, device=dev)
+    tri_id = torch.empty(shape, dtype=torch.int32, device=dev)
     lib = _backend.library()
-    code = lib.vq_raster_vis(
-        binned.pairs.data_ptr(), binned.gpairs.data_ptr(),
-        binned.starts.data_ptr(), binned.rstarts.data_ptr(),
-        binned.gmeta.data_ptr(), binned.tiles_x, binned.tiles_y, width,
-        height, depth.data_ptr(), tri_id.data_ptr(), _backend.stream_of(depth))
-    _backend.check_launch("raster_vis", code)
+    fn, name = ((lib.vq_raster_vis_msaa4, "raster_vis_msaa4") if msaa
+                else (lib.vq_raster_vis, "raster_vis"))
+    code = fn(*_binned_args(binned, width, height), depth.data_ptr(),
+              tri_id.data_ptr(), _backend.stream_of(depth))
+    _backend.check_launch(name, code)
     return depth, tri_id
 
 
@@ -726,12 +882,41 @@ def rasterize(binned: BinnedTriangles, width: int, height: int,
               msaa: bool = False):
     """Visibility rasterization of 16-row records -> (depth [H, W] f32 in
     [0, 1], cleared 1.0; tri_id [H, W] int32, -1 = none) for the pixel
-    center."""
-    if msaa:
-        raise NotImplementedError("rasterize: the MSAA variant is not "
-                                  "ported yet")
+    center, or with msaa per-sample stacks [4, H, W] each (MSAA4_OFFSETS)."""
     if binned.pairs.device.type == "cpu":
-        return rasterize_plain(binned, width, height)
+        return rasterize_plain(binned, width, height, msaa)
     if binned.pairs.is_cuda:
-        return _rasterize_cuda(binned, width, height)
+        return _rasterize_cuda(binned, width, height, msaa)
     raise ValueError(f"rasterize: unsupported device {binned.pairs.device}")
+
+
+# ===========================================================================
+# 6. record evaluation outside the kernels (the MSAA edge resolve)
+# ===========================================================================
+
+def eval_record_planes(rec: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """A packed record's edge and depth planes at pixel coordinates:
+    rec [..., >=12] (scaled edges 0-8, depth plane 9-11), px/py
+    broadcastable -> (b0, b1, b2, z), each e_x*px + e_y*py + e_w with the
+    products and sums rounded one by one, as the reference runs it op by
+    op (no fused multiply-add)."""
+    return tuple(rec[..., 3 * p] * px + rec[..., 3 * p + 1] * py + rec[..., 3 * p + 2]
+                 for p in range(4))
+
+
+def interp_record_attrs(rec: torch.Tensor, px: torch.Tensor,
+                        py: torch.Tensor) -> dict:
+    """The G-buffer kernel's resolve for a list of pixels, as the reference
+    runs it op by op: rec [N, 32] records, px/py [N] pixel centers ->
+    dict(depth [N] clipped to [0, 1], wnrm/wtan [N, 3], uv [N, 2],
+    mat_id/object_id/item_id [N] int32)."""
+    b0, b1, b2, z = eval_record_planes(rec, px, py)
+    ls = [b.clamp(min=0.0) for b in (b0, b1, b2)]
+    lsum = (ls[0] + ls[1] + ls[2]).clamp(min=1e-30)
+    w = [(v / lsum)[:, None] for v in ls]
+    a = [_unpack_attrs(rec[:, 13 + 5 * v:18 + 5 * v]) for v in range(3)]
+    interp = a[0] * w[0] + a[1] * w[1] + a[2] * w[2]
+    mi = rec[:, 28].to(torch.int32)
+    return {"depth": z.clamp(0.0, 1.0), "wnrm": interp[:, 0:3],
+            "wtan": interp[:, 3:6], "uv": interp[:, 6:8], "mat_id": mi >> 16,
+            "object_id": rec[:, 29].to(torch.int32), "item_id": mi & 0xFFFF}

@@ -1,7 +1,7 @@
 """The forward render graph — counterpart of ``vqengine_tpu/render/graph.py``
-for the main path: cull + LOD, raster front end, G-buffer raster, material
-fetch, shadow maps and shadow tests, direct-light shading, background
-composite and tonemap.
+for the main path: cull + LOD, raster front end, G-buffer raster (with or
+without MSAA), material fetch, shadow maps and shadow tests, direct-light
+shading, the MSAA edge resolve, background composite and tonemap.
 
 PyTorch runs eagerly, so a render graph here is a plain function of
 (DeviceScene, FrameConstants) tensors on one device; nothing is traced or
@@ -17,8 +17,13 @@ import numpy as np
 import torch
 
 from ..ops import colorspace as cs
-from ..ops import culling, palette, raster, shading, shadow
+from ..ops import culling, palette, raster, shading, shadow, sparse
+from ..ops import msaa as msaa_ops
 from ..ops import postprocess as pp
+
+# capacity of the MSAA edge compaction: frame pixels / MSAA_EDGE_CAP_FRAC,
+# rounded up to a multiple of 4096 (at least 4096)
+MSAA_EDGE_CAP_FRAC = 32
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -182,21 +187,29 @@ def frame_constants_from_numpy(fields: dict,
                              for f in dataclasses.fields(FrameConstants)})
 
 
+def _unproject(ndc_x: torch.Tensor, ndc_y: torch.Tensor, depth: torch.Tensor,
+               inv_view_proj: torch.Tensor) -> torch.Tensor:
+    """(ndc_x, ndc_y, depth, 1) through inv_view_proj -> world position
+    [..., 3]. The four products are summed in pairs, as XLA sums the
+    reference's einsum "ij,hwj->hwi" and its clip @ inv_view_proj.T on the
+    CPU: the shadow tests amplify an ulp of wpos into a texel flip."""
+    clip = (ndc_x, ndc_y, depth, torch.ones_like(depth))
+    m = inv_view_proj
+    wp = [(m[i, 0] * clip[0] + m[i, 1] * clip[1])
+          + (m[i, 2] * clip[2] + m[i, 3] * clip[3]) for i in range(4)]
+    w = torch.where(wp[3].abs() > 1e-12, wp[3], torch.full_like(wp[3], 1e-12))
+    return torch.stack(wp[:3], dim=-1) / w[..., None]
+
+
 def world_pos_from_depth(depth: torch.Tensor, consts: FrameConstants,
                          width: int, height: int) -> torch.Tensor:
     """World position from the depth buffer through inv_view_proj."""
     dev = depth.device
     px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width * 2.0 - 1.0
     py = 1.0 - (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height * 2.0
-    clip = [px[None, :].expand(height, width), py[:, None].expand(height, width),
-            depth, torch.ones_like(depth)]
-    m = consts.inv_view_proj
-    # summed in pairs, as XLA sums the reference's einsum "ij,hwj->hwi" on
-    # the CPU: the shadow tests amplify an ulp of wpos into a texel flip
-    wp = [(m[i, 0] * clip[0] + m[i, 1] * clip[1])
-          + (m[i, 2] * clip[2] + m[i, 3] * clip[3]) for i in range(4)]
-    w = torch.where(wp[3].abs() > 1e-12, wp[3], torch.full_like(wp[3], 1e-12))
-    return torch.stack(wp[:3], dim=-1) / w[..., None]
+    return _unproject(px[None, :].expand(height, width),
+                      py[:, None].expand(height, width), depth,
+                      consts.inv_view_proj)
 
 
 def _attrs_from_gbuf(scene: DeviceScene, consts: FrameConstants,
@@ -241,22 +254,32 @@ def geometry_setup_gbuf(scene: DeviceScene, consts: FrameConstants,
 
 
 def geometry_pass(scene: DeviceScene, consts: FrameConstants,
-                  width: int, height: int, pair_capacity: int | None = None,
-                  tel: dict | None = None):
+                  width: int, height: int, msaa: bool = False,
+                  pair_capacity: int | None = None, tel: dict | None = None):
     """Cull + raster front end + binning + G-buffer raster ->
-    (depth, tri_id, attrs, mask). attrs carries the binning overflow
-    and pair demand of the frame."""
+    (depth, tri_id, attrs, mask, coverage). attrs carries the binning
+    overflow and pair demand of the frame. With msaa, coverage is the
+    kernel's per-sample coverage [4, H, W] and attrs["records"] the packed
+    per-triangle records the edge resolve re-tests; else coverage is
+    None."""
     setup, extra = geometry_setup_gbuf(scene, consts, width, height)
     binned = raster.bin_triangles(setup, width, height, extra=extra,
                                   pair_capacity=pair_capacity)
     if tel is not None:
         tel["raster_pairs"] = binned.demand.to(torch.float32) / binned.pair_cap
-    depth, tri_id, gbuf = raster.rasterize_gbuf(binned, width, height)
+    coverage = None
+    if msaa:
+        depth, tri_id, gbuf, coverage = raster.rasterize_gbuf(
+            binned, width, height, msaa=True)
+    else:
+        depth, tri_id, gbuf = raster.rasterize_gbuf(binned, width, height)
     attrs, mask = _attrs_from_gbuf(scene, consts, depth, tri_id, gbuf,
                                    width, height)
     attrs["overflow"] = binned.overflow
     attrs["pair_demand"] = binned.demand
-    return depth, tri_id, attrs, mask
+    if msaa:
+        attrs["records"] = raster.pack_records(setup, extra)
+    return depth, tri_id, attrs, mask, coverage
 
 
 def material_pass(wnrm: torch.Tensor, mrow: torch.Tensor,
@@ -422,6 +445,107 @@ def shadow_pass(scene: DeviceScene, consts: FrameConstants,
     return spot_vis, point_vis, dir_vis
 
 
+def msaa_edge_cap(width: int, height: int) -> int:
+    """The edge compaction's capacity: frame pixels / MSAA_EDGE_CAP_FRAC,
+    rounded up to a multiple of 4096 (at least 4096)."""
+    return -(-max(4096, (width * height) // MSAA_EDGE_CAP_FRAC) // 4096) * 4096
+
+
+def _msaa_edge_neighbor(attrs: dict, tri_id: torch.Tensor,
+                        depth: torch.Tensor, mask: torch.Tensor,
+                        cov_s: torch.Tensor, hdr: torch.Tensor,
+                        width: int, height: int,
+                        telemetry: dict | None = None):
+    """The neighbor-color MSAA edge resolve (the default mode): exact
+    per-sample visibility from msaa.resolve_secondary, and the secondary
+    surface's color taken from the first 4-neighbor pixel whose primary
+    winner is that surface (already shaded one pixel away), matched on the
+    compacted lanes. -> (w_sec [H, W] the secondary's sample weight,
+    sec_rgb [H, W, 3] its pre-weighted color)."""
+    cap = msaa_edge_cap(width, height)
+    object_id = attrs["ids"][..., 0].to(torch.int32)
+    idx, live, sec_id, n_sec, _, _ = msaa_ops.resolve_secondary(
+        attrs["records"], tri_id, depth, object_id, mask, cov_s, cap,
+        telemetry=telemetry)
+    tid_flat = tri_id.reshape(-1)
+    px_i = idx % width
+    py_i = torch.div(idx, width, rounding_mode="floor")
+    sel = torch.zeros_like(idx)
+    found = torch.zeros(idx.shape, dtype=torch.bool, device=idx.device)
+    for dy, dx in msaa_ops.NEIGHBOR_OFFSETS:
+        nidx = ((py_i + dy).clamp(0, height - 1) * width
+                + (px_i + dx).clamp(0, width - 1))
+        match = ~found & (tid_flat[nidx] == sec_id)
+        sel = torch.where(match, nidx, sel)
+        found = found | match
+    sec_rgb = hdr.reshape(-1, 3)[sel]
+    # unfound secondaries keep the primary; live excludes n_sec == 0
+    w_c = torch.where(found, n_sec * 0.25, torch.zeros_like(n_sec))
+    w_img = sparse.scatter_pixels(
+        torch.zeros((height, width), dtype=torch.float32, device=hdr.device),
+        idx, w_c, live)
+    sec_w = sparse.scatter_pixels(torch.zeros_like(hdr), idx,
+                                  sec_rgb * w_c[:, None], live)
+    return w_img, sec_w
+
+
+def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
+                         attrs: dict, tri_id: torch.Tensor,
+                         depth: torch.Tensor, mask: torch.Tensor,
+                         cov_s: torch.Tensor, spot_vis, point_vis, dir_vis,
+                         width: int, height: int, enable_shadows: bool,
+                         telemetry: dict | None = None):
+    """The "shade" MSAA edge resolve: the secondary surface of each edge
+    pixel (msaa.resolve_secondary) interpolated from its record at the
+    pixel center (raster.interp_record_attrs), unprojected from its depth,
+    and shaded by the same material and direct-light path as the primary
+    on the compacted list; shadow visibility is the pixel's own. ->
+    (w_sec [H, W], sec_rgb [H, W, 3] pre-weighted)."""
+    cap = msaa_edge_cap(width, height)
+    object_id = attrs["ids"][..., 0].to(torch.int32)
+    records = attrs["records"]
+    idx, live, sec_id, n_sec, px, py = msaa_ops.resolve_secondary(
+        records, tri_id, depth, object_id, mask, cov_s, cap,
+        telemetry=telemetry)
+    a = raster.interp_record_attrs(records[sec_id.clamp(min=0).long()], px, py)
+
+    wpos = _unproject(px / width * 2.0 - 1.0, 1.0 - py / height * 2.0,
+                      a["depth"], consts.inv_view_proj)
+
+    wn = a["wnrm"]
+    wn = wn / torch.clamp(shadow.norm3(wn), min=1e-9)[..., None]
+    mrow = palette.palette_lookup(a["mat_id"], scene.materials)
+    ids = torch.stack([a["object_id"].to(torch.float32),
+                       a["item_id"].to(torch.float32)], dim=-1)
+    mat = material_pass(wn, mrow, ids)
+
+    def gs(v):                       # [C, H, W] -> [C, cap]
+        return torch.stack([v[c].reshape(-1)[idx] for c in range(v.shape[0])])
+
+    hdr_c = shading.shade_forward(
+        world_pos=wpos, normal=mat["normal"], albedo=mat["albedo"],
+        roughness=mat["roughness"], metalness=mat["metalness"],
+        emissive=mat["emissive"], ao=consts.ambient_factor * mat["local_ao"],
+        camera_pos=consts.camera_pos, point_lights=consts.point_lights,
+        spot_lights=consts.spot_lights, spot_extra=consts.spot_extra,
+        directional=consts.directional,
+        point_casters=consts.point_casters if enable_shadows else None,
+        point_shadow=gs(point_vis) if point_vis is not None else None,
+        spot_casters=consts.spot_casters if enable_shadows else None,
+        spot_caster_extra=consts.spot_caster_extra if enable_shadows else None,
+        spot_shadow=gs(spot_vis) if spot_vis is not None else None,
+        dir_shadow=(sparse.gather_pixels(dir_vis, idx)
+                    if dir_vis is not None else None))
+    wt = torch.where(live, n_sec * 0.25, torch.zeros_like(n_sec))
+    w_img = sparse.scatter_pixels(
+        torch.zeros((height, width), dtype=torch.float32, device=px.device),
+        idx, wt, live)
+    rgb_img = sparse.scatter_pixels(
+        torch.zeros((height, width, 3), dtype=torch.float32, device=px.device),
+        idx, hdr_c * wt[:, None], live)
+    return w_img, rgb_img
+
+
 def render_forward(scene: DeviceScene, consts: FrameConstants,
                    width: int, height: int,
                    output_display_curve: int = cs.DISPLAY_CURVE_SRGB,
@@ -441,16 +565,22 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                    shadow_maps: dict | None = None,
                    enable_alpha_mask: bool = False,
                    scene_transparent: DeviceScene | None = None,
+                   msaa_edge_resolve: bool | str = True,
                    pair_capacity: int | None = None) -> dict:
-    """Forward frame: geometry -> material -> shadows -> shade ->
-    background -> tonemap. Returns ldr [H, W, 3], hdr, depth, tri_id,
-    object_id, overflow [3], pair_demand and saturation, as the reference
-    does. With enable_shadows, caster lights are shadowed by maps from
-    `shadow_maps` (render_shadow_maps, cached) or rendered in the frame;
-    without, they drop out, as in the reference."""
+    """Forward frame: geometry -> material -> shadows -> shade -> MSAA
+    edge resolve -> background -> tonemap. Returns ldr [H, W, 3], hdr,
+    depth, tri_id, object_id, overflow [3], pair_demand and saturation, as
+    the reference does. With enable_shadows, caster lights are shadowed by
+    maps from `shadow_maps` (render_shadow_maps, cached) or rendered in
+    the frame; without, they drop out, as in the reference. With msaa the
+    G-buffer comes from the MSAA raster and the pixel blends with the
+    background by its covered-sample share; msaa_edge_resolve True or
+    "neighbor" (the default) also splits an edge pixel's covered samples
+    with the secondary surface colored from a neighbor pixel, "shade"
+    shades the secondary surface itself, False keeps the winner alone."""
     unported = {
         "env": env is not None, "textures": textures is not None,
-        "msaa": msaa, "enable_ssao": enable_ssao, "enable_ssr": enable_ssr,
+        "enable_ssao": enable_ssao, "enable_ssr": enable_ssr,
         "enable_motion_vectors": enable_motion_vectors,
         "enable_alpha_mask": enable_alpha_mask,
         "scene_transparent": scene_transparent is not None,
@@ -463,8 +593,9 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
         raise NotImplementedError(f"render_forward: not ported yet: {asked}")
 
     tel: dict = {}
-    depth, tri_id, attrs, mask = geometry_pass(
-        scene, consts, width, height, pair_capacity=pair_capacity, tel=tel)
+    depth, tri_id, attrs, mask, coverage = geometry_pass(
+        scene, consts, width, height, msaa=msaa, pair_capacity=pair_capacity,
+        tel=tel)
     wn = attrs["wnrm"]
     wn = wn / torch.clamp(shadow.norm3(wn), min=1e-9)[..., None]
     mat = material_pass(wn, attrs["mrow"], attrs["ids"])
@@ -487,7 +618,28 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
         spot_caster_extra=consts.spot_caster_extra if enable_shadows else None,
         spot_shadow=spot_vis, dir_shadow=dir_vis)
     background = consts.clear_color.expand(hdr.shape)
-    hdr = torch.where(mask[..., None], hdr, background)
+    if coverage is not None:
+        # covered-sample share: silhouettes blend with the background; at
+        # edges between two surfaces the resolve splits the covered samples
+        covm = coverage.mean(dim=0)
+        if msaa_edge_resolve:
+            if msaa_edge_resolve == "shade":
+                w_sec, sec_rgb = _msaa_edge_secondary(
+                    scene, consts, attrs, tri_id, depth, mask, coverage,
+                    spot_vis, point_vis, dir_vis, width, height,
+                    enable_shadows, telemetry=tel)
+            else:
+                w_sec, sec_rgb = _msaa_edge_neighbor(
+                    attrs, tri_id, depth, mask, coverage, hdr, width, height,
+                    telemetry=tel)
+            w_pri = torch.clamp(covm - w_sec, min=0.0)
+            hdr = (hdr * w_pri[..., None] + sec_rgb
+                   + background * (1.0 - covm)[..., None])
+        else:
+            hdr = hdr * covm[..., None] + background * (1.0 - covm[..., None])
+        hdr = torch.where((mask | (covm > 0))[..., None], hdr, background)
+    else:
+        hdr = torch.where(mask[..., None], hdr, background)
     ldr = pp.tonemap(hdr, output_display_curve, apply_gamma=apply_gamma)
     return {"ldr": ldr, "hdr": hdr, "depth": depth, "tri_id": tri_id,
             "object_id": torch.where(mask, mat["object_id"],

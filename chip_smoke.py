@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port (vqengine_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card; builds the kernels
-    python3 chip_smoke.py --profile  # also a stage breakdown and a trace
+    python3 chip_smoke.py --profile  # also stage breakdowns and a trace
 
 Phases, each printing its own lines; any failure exits non-zero before
 the final line:
@@ -19,19 +19,29 @@ the final line:
      covered pixels and sample-only winners, each count above 0) and on
      the crafted records of ops/raster_probes.py (thresholds decided by
      their rounding, key select, z = 1, records past the counts);
-  5. K2 visibility raster kernel vs its plain version on Sponza's 8 caster
+  5. K1-bounded (both sample modes) vs its plain version, bitwise: (a) the
+     translucent Sponza (SPONZA_TRANSLUCENT) at 1920x1080, the transparent
+     pass's two peel windows of the first frame; (b) an alpha-peel window
+     (zlo = depth where a seeded mask fails, else 2; zhi = 2) on the opaque
+     Sponza's binning; (c) the MSAA variant on HelloCube at 1920x1080 and
+     192x108 with a window through the cube; (d) the crafted records of
+     ops/raster_probes.bounded_probe (fragments on zlo and zhi, empty
+     windows, ties); pixel counts each check reaches; both variants timed;
+  6. K2 visibility raster kernel vs its plain version on Sponza's 8 caster
      views at the full shadow budget (spot 1024^2, 6 point faces 1024^2,
      directional 2048^2): pair demand, capacity and overflow per view;
      depth and tri_id bitwise; timed; then its MSAA variant on the
      directional and the spot view (per-sample stacks bitwise), timed;
-  6. HelloTriangle/HelloCube (and HelloCube with MSAA) at 192x108 on the
+  7. HelloTriangle/HelloCube (and HelloCube with MSAA) at 192x108 on the
      card against the goldens (the bars of
      vqengine_tpu_torch/engine/goldens.py), the entry() frame on the card
      against the same frame on the CPU, a shadowed Sponza frame (192x108,
      ESM, 64^2 maps rendered in the frame) on the card against the CPU,
-     and the MSAA Sponza frame (192x108, cached 64^2 ESM maps) on the card
-     against the CPU in both edge-resolve modes;
-  7. main paths, Sponza 1920x1080, each with the kernel launch counts set
+     the MSAA Sponza frame (192x108, cached 64^2 ESM maps) on the card
+     against the CPU in both edge-resolve modes, and the translucent Sponza
+     frame (the same, with its transparent pass) on the card against the
+     CPU;
+  8. main paths, Sponza 1920x1080, each with the kernel launch counts set
      to 0 just before it and read just after: (a) the shadowed path
      without MSAA: precompute_shadow_maps (ESM, full budget; timed), then
      16 frames of a yaw sweep with the cached maps; (b) 4 frames rendering
@@ -39,7 +49,10 @@ the final line:
      PCF maps; (d) 8 frames with shadows off (the first slice's path);
      (e) the engine's default frame: the precompute, then 16 frames with
      MSAA 4x and the neighbor edge resolve (edge saturation per frame),
-     and 4 frames with the "shade" edge resolve.
+     and 4 frames with the "shade" edge resolve; (f) the translucent Sponza
+     on its own renderer: the precompute, 16 engine-default frames and 4
+     without MSAA, each with the two-layer transparent pass (2 K1-bounded
+     launches per frame), the layers' pixel counts of the first frame.
      Overflow 0 and finite output; ms/frame, peak memory, launches.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -75,6 +88,9 @@ HBM_BYTES_PER_S = 3.35e12
 RASTER_FLOPS = 36
 RASTER_FLOPS_MSAA = 52
 RASTER_FLOPS_MSAA4 = 52
+# K1-bounded: the two window compares on top of K1's and K1-MSAA's
+RASTER_FLOPS_BOUNDED = 38
+RASTER_FLOPS_MSAA_BOUNDED = 54
 ROOT = Path(__file__).resolve().parent
 
 
@@ -164,12 +180,19 @@ def phase_build() -> None:
         say(f"[build] {line}")
 
 
-def load_sponza(dev):
-    from vqengine_tpu_torch.engine.scene_load import load_scene
+def load_sponza(dev, translucent: bool = False):
+    """Sponza at W x H on its own renderer; translucent: SPONZA_TRANSLUCENT's
+    materials made translucent (a transparent part)."""
+    from vqengine_tpu_torch.engine.scene_load import (SPONZA_TRANSLUCENT,
+                                                      load_scene)
     from vqengine_tpu_torch.render.renderer import VQRendererTorch
-    scene = load_scene("Sponza", W, H)
+    scene = load_scene("Sponza", W, H,
+                       material_alpha=SPONZA_TRANSLUCENT if translucent else None)
     r = VQRendererTorch(dev)
     r.load_scene(scene.buffers)
+    if (r.scene_t is not None) != translucent:
+        fail(f"Sponza (translucent {translucent}) has transparent part "
+             f"{r.scene_t is not None}")
     return scene, r
 
 
@@ -342,6 +365,146 @@ def phase_raster_msaa(dev, binned) -> dict:
         f"{RASTER_FLOPS_MSAA} operations per record per pixel)")
     return {"max_abs_err": gerr, "ms": t_k, "plain_ms": t_p, **bd,
             "library_ms": None}
+
+
+def check_bounded_kernel(binned, width: int, height: int, msaa: bool,
+                         zbound, label: str):
+    """K1-bounded against its plain version on one input: depth, tri_id,
+    gbuf (and coverage) bitwise -> (outputs, max |kernel - plain| over the
+    float outputs, pixels whose winner the window changed against the
+    unbounded kernel, partly covered pixels or None)."""
+    from vqengine_tpu_torch.ops import raster
+    out = raster.rasterize_gbuf(binned, width, height, msaa=msaa, zbound=zbound)
+    plain = raster.rasterize_gbuf_plain(binned, width, height, msaa=msaa,
+                                        zbound=zbound)
+    free = raster.rasterize_gbuf(binned, width, height, msaa=msaa)
+    torch.cuda.synchronize()
+    kind = "K1-MSAA-bounded" if msaa else "K1-bounded"
+    for name, a, b in zip(("depth", "tri_id", "gbuf", "coverage"), out, plain):
+        if not bitwise_equal(a, b):
+            fail(f"{kind} {label}: {name} differs on {int((a != b).sum())} values")
+    err = max(float((a - b).abs().max()) for a, b in zip(out, plain)
+              if a.dtype == torch.float32)
+    changed = int((out[1] != free[1]).sum())
+    part = None
+    if msaa:
+        n = out[3].sum(0)
+        part = int(((n > 0) & (n < 4)).sum())
+    return out, err, changed, part
+
+
+def phase_raster_bounded(dev, sponza, renderer, st, rt) -> tuple:
+    """K1-bounded in both sample modes against its plain version on (a)-(d)
+    of the module docstring; both variants timed on the translucent
+    Sponza's first peel window at 1080p (the transparent pass's first
+    launch)."""
+    from vqengine_tpu_torch.engine.scene_load import load_scene
+    from vqengine_tpu_torch.ops import raster, raster_probes
+    from vqengine_tpu_torch.render import graph
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    # (a) the transparent pass's two windows on the translucent Sponza
+    c = rt.build_frame_constants(st.buffers, st.cameras[0], st.lights)
+    opaque = graph.geometry_pass(rt.scene, c, W, H, msaa=True)[0]
+    setup, extra = graph.geometry_setup_gbuf(rt.scene_t, c, W, H)
+    tb = raster.bin_triangles(setup, W, H, extra=extra)
+    if int(tb.overflow.sum()):
+        fail(f"translucent Sponza's transparent binning overflowed: "
+             f"{tb.overflow.tolist()}")
+    errs = {False: 0.0, True: 0.0}      # per sample mode
+    zlo = torch.full_like(opaque, -1.0)
+    first = (zlo, opaque)
+    for k in (1, 2):
+        out, err, changed, _ = check_bounded_kernel(
+            tb, W, H, False, (zlo, opaque), f"translucent Sponza layer {k}")
+        errs[False] = max(errs[False], err)
+        px = int((out[1] >= 0).sum())
+        say(f"[K1-bounded] (a) translucent Sponza {W}x{H}, layer {k} window: "
+            f"depth, tri_id and gbuf bitwise equal; {int(tb.demand)} pairs; "
+            f"layer pixels {px}, pixels whose winner the window changed "
+            f"{changed}")
+        if not (px and changed):
+            fail(f"K1-bounded translucent Sponza layer {k}: {px} pixels, "
+                 f"{changed} changed")
+        zlo = out[0]
+    # (b) an alpha-peel window on the opaque Sponza's binning
+    c = renderer.build_frame_constants(sponza.buffers, sponza.cameras[0],
+                                       sponza.lights)
+    setup, extra = graph.geometry_setup_gbuf(renderer.scene, c, W, H)
+    ob = raster.bin_triangles(setup, W, H, extra=extra)
+    depth, tri_id, _ = raster.rasterize_gbuf(ob, W, H)
+    failed = (torch.rand((H, W), generator=torch.Generator().manual_seed(7))
+              < 0.25).to(dev) & (tri_id >= 0)
+    two = torch.full_like(depth, 2.0)
+    out, err, changed, _ = check_bounded_kernel(
+        ob, W, H, False, (torch.where(failed, depth, two), two),
+        "alpha-peel window")
+    errs[False] = max(errs[False], err)
+    behind = int((failed & (out[1] >= 0)).sum())
+    say(f"[K1-bounded] (b) alpha-peel window on Sponza {W}x{H}: bitwise "
+        f"equal; failed pixels {int(failed.sum())}, a surface behind "
+        f"{behind}, pixels whose winner the window changed {changed}")
+    if not behind:
+        fail("K1-bounded alpha-peel window: no surface behind a failed pixel")
+    # (c) the MSAA variant through HelloCube's silhouettes
+    for w, h in ((W, H), (SMALL_W, SMALL_H)):
+        s = load_scene("HelloCube", w, h)
+        r = VQRendererTorch(dev)
+        r.load_scene(s.buffers)
+        cc = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+        setup, extra = graph.geometry_setup_gbuf(r.scene, cc, w, h)
+        cube = raster.bin_triangles(setup, w, h, extra=extra)
+        d, t, _ = raster.rasterize_gbuf(cube, w, h)
+        q = torch.quantile(d[t >= 0], torch.tensor([0.25, 0.75], device=dev))
+        zb = (torch.full_like(d, float(q[0])), torch.full_like(d, float(q[1])))
+        _, err, changed, part = check_bounded_kernel(cube, w, h, True, zb,
+                                                     f"HelloCube {w}x{h}")
+        errs[True] = max(errs[True], err)
+        say(f"[K1-bounded] (c) HelloCube {w}x{h}, MSAA, window "
+            f"({float(q[0]):.6f}, {float(q[1]):.6f}): depth, tri_id, gbuf and "
+            f"coverage bitwise equal; partly covered pixels {part}, pixels "
+            f"whose winner the window changed {changed}")
+        if not (part and changed):
+            fail(f"K1-MSAA-bounded HelloCube {w}x{h}: {part} partly covered, "
+                 f"{changed} changed")
+    # (d) crafted records and windows
+    pb, zb, cls = raster_probes.bounded_probe(device=dev)
+    pw, ph = raster_probes.BOUNDED_W, raster_probes.BOUNDED_H
+    for msaa in (False, True):
+        out, err, changed, part = check_bounded_kernel(pb, pw, ph, msaa, zb,
+                                                       "crafted records")
+        errs[msaa] = max(errs[msaa], err)
+        empty = (cls == 3) | (cls == 7) | (cls == 10)
+        center = raster.rasterize_gbuf(pb, pw, ph, zbound=zb)[1]
+        sample_only = int(((out[1] >= 0) & (center < 0)).sum())
+        say(f"[K1-bounded] (d) crafted records {pw}x{ph} "
+            f"(ops/raster_probes.bounded_probe), {'MSAA' if msaa else 'center'}"
+            f": bitwise equal; pixels whose winner the window changed "
+            f"{changed}, empty-window pixels {int(empty.sum())} all background"
+            f"{'' if part is None else f', partly covered {part}, sample-only winners {sample_only}'}")
+        if bool((out[1][empty] >= 0).any()) or not changed:
+            fail(f"crafted records: an empty window has a winner or nothing "
+                 f"changed ({changed})")
+        if msaa and not (part and sample_only):
+            fail(f"crafted records, MSAA: {part} partly covered, {sample_only} "
+                 f"sample-only")
+    timed = {}
+    for msaa, flops in ((False, RASTER_FLOPS_BOUNDED),
+                        (True, RASTER_FLOPS_MSAA_BOUNDED)):
+        t_k = time_ms(lambda: raster.rasterize_gbuf(tb, W, H, msaa=msaa,
+                                                    zbound=first), 20)
+        t_p = time_ms(lambda: raster.rasterize_gbuf_plain(
+            tb, W, H, msaa=msaa, zbound=first), 3, warmup=1)
+        # outputs: depth, tri_id, 16 G-buffer channels (and 4 coverage
+        # planes); the window's two planes read once
+        out_px = 4 * (2 + raster.GBUF_OUT + (4 if msaa else 0)) + 8
+        bd = bound(*raster_work(tb, W, H, out_px, flops))
+        name = raster.gbuf_kernel_name(msaa, True)
+        say(f"[K1-bounded] {name}, translucent Sponza {W}x{H} layer 1: kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}, {flops} operations per record per pixel)")
+        timed[name] = {"max_abs_err": errs[msaa], "ms": t_k, "plain_ms": t_p,
+                       **bd, "library_ms": None}
+    return timed["raster_gbuf_bounded"], timed["raster_gbuf_msaa_bounded"]
 
 
 def caster_views(consts) -> list:
@@ -520,6 +683,33 @@ def phase_msaa_card_vs_cpu(dev) -> None:
                  f"{diff}, saturation {sat}")
 
 
+def phase_transparent_card_vs_cpu(dev) -> None:
+    """The translucent Sponza at 192x108, engine default (MSAA, neighbor
+    edge resolve, cached 64^2 ESM maps) with its transparent pass, on the
+    card and on the CPU: tri_id equal, ldr within ENTRY_TOL."""
+    from vqengine_tpu_torch.engine.scene_load import (SPONZA_TRANSLUCENT,
+                                                      load_scene)
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    s = load_scene("Sponza", SMALL_W, SMALL_H, material_alpha=SPONZA_TRANSLUCENT)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+        maps = r.precompute_shadow_maps(c, SMALL_DIMS)
+        out = r.render(c, SMALL_W, SMALL_H, shadow_dims=SMALL_DIMS,
+                       shadow_maps=maps, msaa=True)
+        outs.append({k: out[k].cpu() for k in ("ldr", "tri_id")})
+    same = int((outs[0]["tri_id"] == outs[1]["tri_id"]).sum())
+    diff = float((outs[0]["ldr"] - outs[1]["ldr"]).abs().max())
+    say(f"[transparent] translucent Sponza {SMALL_W}x{SMALL_H}, MSAA, cached "
+        f"ESM maps {SMALL_DIMS[0]}^2, two transparent layers, card vs CPU: "
+        f"tri_id equal on {same}/{SMALL_W * SMALL_H} pixels, max |ldr diff| "
+        f"{diff}")
+    if same != SMALL_W * SMALL_H or not diff <= ENTRY_TOL:
+        fail(f"translucent Sponza card vs CPU: {same} equal ids, ldr diff {diff}")
+
+
 def run_frames(renderer, consts: list, card: str, label: str, **flags) -> dict:
     """Render the frames (CUDA events around each) with the launch counts
     set to 0 first; fail on overflow, non-finite output or a plain version
@@ -674,6 +864,58 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
     return {k: launches[k] + launches_e[k] for k in launches}
 
 
+def phase_transparent_path(card: str, st, rt) -> dict:
+    """(f) the translucent Sponza on its own renderer: the layers' pixel
+    counts of the first frame, the precompute, N_FRAMES engine-default
+    frames and N_SIDE_FRAMES without MSAA, each with the transparent pass
+    (2 K1-bounded launches per frame) -> launches."""
+    from vqengine_tpu_torch.engine.scene_load import SPONZA_TRANSLUCENT
+    from vqengine_tpu_torch.render import graph
+    cam = st.cameras[0]
+    base_yaw = cam.yaw
+    consts = []
+    for i in range(N_FRAMES):
+        sweep_camera(cam, i, base_yaw)
+        consts.append(rt.build_frame_constants(st.buffers, cam, st.lights))
+    cam.yaw = base_yaw
+    opaque = graph.geometry_pass(rt.scene, consts[0], W, H, msaa=True)[0]
+    layers = graph.transparent_layers(rt.scene_t, consts[0], opaque, W, H)
+    pixels = [int(layer["mask"].sum()) for layer in layers]
+    say(f"[main] (f) translucent Sponza {W}x{H} (material alpha "
+        f"{SPONZA_TRANSLUCENT}): "
+        f"{rt.scene_t.num_tris_live} transparent triangles (corner tables), "
+        f"{rt.scene.num_tris_live} opaque; first frame's layer pixels "
+        f"{pixels}")
+    if min(pixels) == 0:
+        fail(f"a transparent layer is empty: {pixels}")
+    maps = rt.precompute_shadow_maps(consts[0])
+    for c in consts[:2]:
+        rt.render(c, W, H, shadow_maps=maps, msaa=True)
+        rt.render(c, W, H, shadow_maps=maps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    maps, _, pre = precompute(rt, consts[0], card, "esm")
+    msaa = run_frames(rt, consts, card, "(f) translucent Sponza, engine "
+                      "default (MSAA, neighbor, cached ESM maps) + 2-layer "
+                      "transparent pass", shadow_maps=maps, msaa=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    side = consts[:N_SIDE_FRAMES]
+    plain = run_frames(rt, side, card, "(f) translucent Sponza, no MSAA, "
+                       "cached ESM maps + 2-layer transparent pass",
+                       shadow_maps=maps)
+    n, m = len(consts), len(side)
+    say(f"[main] (f) launches per frame: engine default "
+        f"{ {k: v / n for k, v in msaa.items()} }, no MSAA "
+        f"{ {k: v / m for k, v in plain.items()} }; peak device memory "
+        f"{peak:.1f} MiB")
+    if (msaa["raster_gbuf_bounded"] != 2 * n or msaa["raster_gbuf_msaa_bounded"]
+            or msaa["raster_gbuf_msaa"] != n or msaa["raster_gbuf"]):
+        fail(f"translucent MSAA frames launched {msaa}")
+    if plain["raster_gbuf_bounded"] != 2 * m or plain["raster_gbuf"] != m:
+        fail(f"translucent frames without MSAA launched {plain}")
+    return {k: pre[k] + msaa[k] + plain[k] for k in msaa}
+
+
 def idle_share(trace: dict, window_name: str) -> tuple[float, float, dict]:
     """From a chrome trace of torch.profiler: -> (window ms, device busy
     ms, {kernel name: (ms, launches)}). The window is the host annotation
@@ -805,6 +1047,47 @@ def phase_profile(sponza, renderer) -> None:
             f"x{n // PROFILE_FRAMES:<4} {name[:100]}")
 
 
+def phase_profile_transparent(st, rt) -> None:
+    """CUDA-event time of the transparent pass's stages on the translucent
+    Sponza's engine-default frame (10 runs each, host syncs included)."""
+    from vqengine_tpu_torch.ops import raster
+    from vqengine_tpu_torch.render import graph
+    c = rt.build_frame_constants(st.buffers, st.cameras[0], st.lights)
+    maps = rt.precompute_shadow_maps(c)
+    opaque = graph.geometry_pass(rt.scene, c, W, H, msaa=True)[0]
+    setup, extra = graph.geometry_setup_gbuf(rt.scene_t, c, W, H)
+    tb = raster.bin_triangles(setup, W, H, extra=extra)
+    w1 = (torch.full_like(opaque, -1.0), opaque)
+    l1 = raster.rasterize_gbuf(tb, W, H, zbound=w1)
+    w2 = (l1[0], opaque)
+    l2 = raster.rasterize_gbuf(tb, W, H, zbound=w2)
+    layers = [graph.shade_transparent_layer(rt.scene_t, c, *g, W, H)
+              for g in (l1, l2)]
+    hdr = torch.rand((H, W, 3), device=opaque.device)
+    stages = {
+        "transparent front end (cull, LOD, transform, setup, attribute pack)":
+            lambda: graph.geometry_setup_gbuf(rt.scene_t, c, W, H),
+        "transparent binning (default capacity)":
+            lambda: raster.bin_triangles(setup, W, H, extra=extra),
+        "K1-bounded raster_gbuf_bounded, layer 1":
+            lambda: raster.rasterize_gbuf(tb, W, H, zbound=w1),
+        "K1-bounded raster_gbuf_bounded, layer 2":
+            lambda: raster.rasterize_gbuf(tb, W, H, zbound=w2),
+        "shading, layer 1 (G-buffer unpack, K3 material fetch, lights)":
+            lambda: graph.shade_transparent_layer(rt.scene_t, c, *l1, W, H),
+        "shading, layer 2": lambda: graph.shade_transparent_layer(
+            rt.scene_t, c, *l2, W, H),
+        "blend (2 layers, back to front)":
+            lambda: graph.blend_layers(hdr, layers),
+        "whole transparent pass":
+            lambda: graph.transparent_pass(rt.scene_t, c, hdr, opaque, W, H),
+        "whole frame (translucent Sponza, engine default + transparent pass)":
+            lambda: rt.render(c, W, H, shadow_maps=maps, msaa=True),
+    }
+    for name, fn in stages.items():
+        say(f"[profile] stage {time_ms(fn, 10):8.3f} ms  {name}")
+
+
 def check_imports() -> None:
     bad = sorted(m for m in sys.modules if m in ("jax", "vqengine_tpu")
                  or m.startswith(("jax.", "vqengine_tpu.")))
@@ -817,14 +1100,22 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     sponza, renderer = load_sponza(dev)
+    st, rt = load_sponza(dev, translucent=True)
     k3 = phase_palette(dev, sponza, renderer)
     k1, k1_msaa = phase_raster(dev, sponza, renderer)
+    k1_bounded, k1_msaa_bounded = phase_raster_bounded(dev, sponza, renderer,
+                                                       st, rt)
     k2, k2_msaa4 = phase_vis(dev, sponza, renderer)
     phase_goldens(dev)
     phase_shadow_card_vs_cpu(dev)
     phase_msaa_card_vs_cpu(dev)
+    phase_transparent_card_vs_cpu(dev)
     launches = phase_main_path(dev, card, sponza, renderer)
+    lt = phase_transparent_path(card, st, rt)
+    launches = {k: launches[k] + lt[k] for k in launches}
     if "--profile" in sys.argv[1:]:
+        # timed before the traced frames, as phase_profile times its stages
+        phase_profile_transparent(st, rt)
         phase_profile(sponza, renderer)
     check_imports()
     kernels = [
@@ -848,6 +1139,14 @@ def main() -> None:
              source="vqengine_tpu_torch/csrc/raster_vis.cu",
              replaces="vqengine_tpu/ops/raster.py:811",
              launches=launches["raster_vis_msaa4"], **k2_msaa4),
+        dict(name="raster_gbuf_bounded", route="cuda",
+             source="vqengine_tpu_torch/csrc/raster_gbuf.cu",
+             replaces="vqengine_tpu/ops/raster.py:1033",
+             launches=launches["raster_gbuf_bounded"], **k1_bounded),
+        dict(name="raster_gbuf_msaa_bounded", route="cuda",
+             source="vqengine_tpu_torch/csrc/raster_gbuf.cu",
+             replaces="vqengine_tpu/ops/raster.py:1004",
+             launches=launches["raster_gbuf_msaa_bounded"], **k1_msaa_bounded),
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

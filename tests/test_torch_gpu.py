@@ -8,7 +8,7 @@ Marked gpu; every test skips without a CUDA card. On a machine with a card
 import pytest
 import torch
 
-from vqengine_tpu_torch.engine.scene_load import load_scene
+from vqengine_tpu_torch.engine.scene_load import SPONZA_TRANSLUCENT, load_scene
 from vqengine_tpu_torch.entry import HEIGHT, WIDTH, entry
 from vqengine_tpu_torch.ops import (_backend, palette, raster, raster_probes,
                                     shadow)
@@ -228,3 +228,118 @@ def test_msaa_frame_on_card_matches_cpu(cuda, mode):
     assert float((out["ldr"].cpu() - ref["ldr"])[same].abs().max()) <= 3e-4
     assert float(out["saturation"]["msaa_edges"]) == float(
         ref["saturation"]["msaa_edges"])
+
+
+def _bounded_vs_plain(binned, width, height, msaa, zbound):
+    """K1-bounded and its plain version on one input, bitwise -> the
+    kernel's outputs."""
+    name = raster.gbuf_kernel_name(msaa, True)
+    before = _backend.launches[name]
+    out = raster.rasterize_gbuf(binned, width, height, msaa=msaa, zbound=zbound)
+    assert _backend.launches[name] == before + 1
+    plain = raster.rasterize_gbuf_plain(binned, width, height, msaa=msaa,
+                                        zbound=zbound)
+    for a, b in zip(out, plain):
+        assert bitwise(a, b)
+    return out
+
+
+@pytest.mark.parametrize("msaa", [False, True])
+def test_raster_gbuf_bounded_kernel_sponza(cuda, msaa):
+    """K1-bounded against its plain version on Sponza at 128x64: the
+    translucent Sponza's two peel windows (in front of the MSAA opaque
+    depth), and an alpha-peel window (zlo = depth where a seeded mask
+    fails, else 2; zhi = 2) on the opaque Sponza's binning."""
+    w, h = 128, 64
+    s = load_scene("Sponza", w, h, material_alpha=SPONZA_TRANSLUCENT)
+    r = VQRendererTorch(cuda)
+    r.load_scene(s.buffers)
+    c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+    opaque = graph.geometry_pass(r.scene, c, w, h, msaa=True)[0]
+    setup, extra = graph.geometry_setup_gbuf(r.scene_t, c, w, h)
+    binned = raster.bin_triangles(setup, w, h, extra=extra)
+    zlo = torch.full_like(opaque, -1.0)
+    for _ in range(2):
+        out = _bounded_vs_plain(binned, w, h, msaa, (zlo, opaque))
+        assert int((out[1] >= 0).sum()) > 0
+        zlo = out[0]
+    full = load_scene("Sponza", w, h)
+    r.load_scene(full.buffers)
+    assert r.scene_t is None
+    c = r.build_frame_constants(full.buffers, full.cameras[0], full.lights)
+    setup, extra = graph.geometry_setup_gbuf(r.scene, c, w, h)
+    binned = raster.bin_triangles(setup, w, h, extra=extra)
+    depth, tri_id, _ = raster.rasterize_gbuf(binned, w, h)
+    fail = (torch.rand((h, w), generator=torch.Generator().manual_seed(4))
+            < 0.3).to(cuda) & (tri_id >= 0)
+    two = torch.full_like(depth, 2.0)
+    out = _bounded_vs_plain(binned, w, h, msaa,
+                            (torch.where(fail, depth, two), two))
+    assert int((fail & (out[1] >= 0)).sum()) > 0
+
+
+def test_raster_gbuf_msaa_bounded_kernel_silhouettes(cuda):
+    """K1-MSAA-bounded against its plain version on HelloCube at 192x108
+    with a window through the cube (its covered depths' quartiles):
+    partly covered pixels inside the window."""
+    s = load_scene("HelloCube", 192, 108)
+    r = VQRendererTorch(cuda)
+    r.load_scene(s.buffers)
+    c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+    setup, extra = graph.geometry_setup_gbuf(r.scene, c, 192, 108)
+    binned = raster.bin_triangles(setup, 192, 108, extra=extra)
+    depth, tri_id, _ = raster.rasterize_gbuf(binned, 192, 108)
+    q = torch.quantile(depth[tri_id >= 0], torch.tensor([0.25, 0.75],
+                                                        device=cuda))
+    zbound = (torch.full_like(depth, float(q[0])), torch.full_like(depth, float(q[1])))
+    out = _bounded_vs_plain(binned, 192, 108, True, zbound)
+    n = out[3].sum(0)
+    assert int(((n > 0) & (n < 4)).sum()) > 0
+    assert int(((out[1] >= 0) & (out[1] != tri_id)).sum()) + int(
+        ((out[1] < 0) & (tri_id >= 0)).sum()) > 0
+
+
+@pytest.mark.parametrize("msaa", [False, True])
+def test_raster_gbuf_bounded_kernel_probe(cuda, msaa):
+    """K1-bounded against its plain version on
+    ops/raster_probes.bounded_probe (fragments on zlo and zhi, empty
+    windows, ties, sample-only fragments cut by the window, a ragged
+    frame): bitwise."""
+    pb, zbound, cls = raster_probes.bounded_probe(device=cuda)
+    out = _bounded_vs_plain(pb, raster_probes.BOUNDED_W,
+                            raster_probes.BOUNDED_H, msaa, zbound)
+    assert bool((out[1][(cls == 7) | (cls == 10)] < 0).all())
+
+
+def test_rasterize_gbuf_rejects_bad_zbound(cuda):
+    """The window must be two contiguous [H, W] f32 tensors on the
+    records' device."""
+    _, (scene, consts) = entry(cuda)
+    setup, extra = graph.geometry_setup_gbuf(scene, consts, WIDTH, HEIGHT)
+    binned = raster.bin_triangles(setup, WIDTH, HEIGHT, extra=extra)
+    z = torch.zeros((HEIGHT, WIDTH), device=cuda)
+    for bad in [(z.double(), z), (z.cpu(), z), (z, z[:, :-1]), (z.t(), z),
+                (z,)]:
+        with pytest.raises(ValueError):
+            raster.rasterize_gbuf(binned, WIDTH, HEIGHT, zbound=bad)
+
+
+def test_transparent_frame_on_card_matches_cpu(cuda):
+    """The translucent Sponza at 192x108, engine default (MSAA, neighbor
+    edge resolve, cached 64^2 ESM maps), with its transparent pass (2
+    K1-bounded launches): tri_id equal, ldr within 3e-4 of the CPU."""
+    s = load_scene("Sponza", 192, 108, material_alpha=SPONZA_TRANSLUCENT)
+    outs = []
+    for d in (cuda, torch.device("cpu")):
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+        maps = r.precompute_shadow_maps(c, (64, 64, 64))
+        before = _backend.launches["raster_gbuf_bounded"]
+        outs.append(r.render(c, 192, 108, shadow_dims=(64, 64, 64),
+                             shadow_maps=maps, msaa=True))
+        if d.type == "cuda":
+            assert _backend.launches["raster_gbuf_bounded"] == before + 2
+    out, ref = outs
+    assert torch.equal(out["tri_id"].cpu(), ref["tri_id"])
+    assert float((out["ldr"].cpu() - ref["ldr"]).abs().max()) <= 3e-4

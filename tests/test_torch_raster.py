@@ -168,7 +168,30 @@ def test_rasterize_gbuf_matches(front):
 @pytest.mark.parametrize("kw", [dict(zbound=(torch.zeros(H, W),
                                              torch.ones(H, W)))])
 def test_rasterize_gbuf_unported_variants_raise(front, kw):
+    """The depth-bounded variant (which raised until it was ported): the
+    window (0, 1) keeps every fragment of the entry frame (its depths lie
+    inside), so the outputs equal the unbounded ones; the wrapper rejects a
+    window of the wrong dtype, shape, device or arity."""
     _, _, ps, px = front
     pb = tr.bin_triangles(ps, W, H, extra=px)
-    with pytest.raises(NotImplementedError):
-        tr.rasterize_gbuf(pb, W, H, **kw)
+    zlo, zhi = kw["zbound"]
+    out = tr.rasterize_gbuf(pb, W, H, **kw)
+    free = tr.rasterize_gbuf(pb, W, H)
+    assert float((free[1] >= 0).float().mean()) > 0.1
+    for a, b in zip(out, free):
+        assert torch.equal(a, b)
+    for bad in [(zlo.double(), zhi), (zlo, zhi[:, :-1]), (zlo[None], zhi),
+                (zlo.to("meta"), zhi), (zlo,), zlo]:
+        with pytest.raises(ValueError):
+            tr.rasterize_gbuf(pb, W, H, zbound=bad)
+
+
+@pytest.mark.parametrize("w,h", [(W, H), (250, 100), (100, 30)])
+def test_tile_image_matches_jax(w, h):
+    """The bounded kernel's window layout: [H, W] -> [NT, NPX] tiles,
+    edge-padded to whole tiles, equal to the reference's tile_image."""
+    img = np.random.default_rng(w).standard_normal((h, w)).astype(np.float32)
+    tx, ty = tr.cdiv(w, tr.TILE_W), tr.cdiv(h, tr.TILE_H)
+    out = tr.tile_image(torch.from_numpy(img), tx, ty)
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(jr.tile_image(jnp.asarray(img), tx, ty)))

@@ -64,9 +64,16 @@ def _compiled(kernel, width: int, height: int, msaa: bool):
                                      msaa=msaa))
 
 
+@functools.cache
+def _compiled_bounded(width: int, height: int, msaa: bool):
+    return jax.jit(lambda binned, zbound: _REF_K1(
+        binned, width=width, height=height, msaa=msaa, zbound=zbound))
+
+
 def _k1(binned, width, height, msaa=False, zbound=None):
-    assert zbound is None
-    return _compiled(_REF_K1, width, height, msaa)(binned)
+    if zbound is None:
+        return _compiled(_REF_K1, width, height, msaa)(binned)
+    return _compiled_bounded(width, height, msaa)(binned, tuple(zbound))
 
 
 def _k2(binned, width, height, msaa=False):
@@ -75,8 +82,8 @@ def _k2(binned, width, height, msaa=False):
 
 @contextlib.contextmanager
 def compiled_rasters():
-    """The reference's raster kernels (raster.rasterize_gbuf, K1, and
-    raster.rasterize, K2) compiled whole under jax.jit while the context
+    """The reference's raster kernels (raster.rasterize_gbuf, K1, bounded
+    or not, and raster.rasterize, K2) compiled whole under jax.jit while the context
     lasts, wherever the JAX package calls them. An interpret-mode kernel
     body is compiled in either case, so the outputs are the op-by-op
     call's bit for bit (checked on the crossing quads, HelloCube, the
@@ -205,9 +212,10 @@ _NO_JAX = """
 import sys, torch
 from vqengine_tpu_torch.engine.scene_load import load_scene
 from vqengine_tpu_torch.render.renderer import VQRendererTorch
-s = load_scene("Sponza", 64, 64)
+s = load_scene("Sponza", 64, 64, material_alpha={"SponzaBrass": 0.5})
 r = VQRendererTorch(torch.device("cpu"))
 r.load_scene(s.buffers)
+assert r.scene_t is not None and r.scene_t.num_tris_live > 0
 consts = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
 assert consts.point_casters.shape[0] == 1 and consts.dir_vp.shape[0] == 1
 out = r.render(consts, 64, 64, shadow_dims=(32, 32, 32), msaa=True)
@@ -224,8 +232,9 @@ print("ok")
 
 def test_port_renders_without_jax():
     """A shadowed Sponza frame (all three caster kinds, maps rendered in
-    the frame) with MSAA and the edge resolve, in a fresh process: neither
-    jax nor any module of the JAX package gets imported."""
+    the frame) with MSAA, the edge resolve and a translucent material (the
+    transparent pass), in a fresh process: neither jax nor any module of
+    the JAX package gets imported."""
     res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
@@ -244,9 +253,22 @@ def entry_cpu():
     dict(cas_sharpness=0.5),
     dict(out_width=2 * WIDTH, out_height=2 * HEIGHT)])
 def test_unported_features_raise(entry_cpu, kw):
+    """Features of later slices raise. Two cases, ported since, now hold
+    the reference's behaviour instead: enable_alpha_mask without textures
+    renders the frame without it (the reference's alpha_test needs
+    textures); the entry scene as its own transparent part renders the
+    opaque frame unchanged (every transparent fragment lies exactly on
+    the opaque depth, and the peel's window is open: coplanar transparent
+    fragments drop, as in the reference)."""
     scene, consts = entry_cpu
-    if kw.get("scene_transparent") == "scene":
-        kw = dict(scene_transparent=scene)
+    if "enable_alpha_mask" in kw or "scene_transparent" in kw:
+        if "scene_transparent" in kw:
+            kw = dict(scene_transparent=scene)
+        base = tg.render_forward(scene, consts, WIDTH, HEIGHT)
+        out = tg.render_forward(scene, consts, WIDTH, HEIGHT, **kw)
+        for key in ("ldr", "hdr", "depth", "tri_id", "object_id"):
+            assert torch.equal(out[key], base[key]), key
+        return
     with pytest.raises(NotImplementedError):
         tg.render_forward(scene, consts, WIDTH, HEIGHT, **kw)
 

@@ -19,6 +19,10 @@
 //   covered" round differently (msaa_threshold).
 // - SAMPLES4 (K2-msaa4): per sample, b_i + (e_ix dx_s + e_iy dy_s) added
 //   to the split values; four carries.
+// BOUNDED (K1-bounded, CENTER and COVERAGE): a fragment competes only
+// where zlo < z < zhi (strict, the pixel-center z), a per-pixel window the
+// caller loads into registers once per tile; in COVERAGE mode the window
+// gates the coverage bits and the key's "some sample covered" too.
 //
 // Plane arithmetic. The reference's split evaluation (_plane_eval_dots in
 // vqengine_tpu/ops/raster.py) is mirrored operation for operation: per
@@ -127,12 +131,15 @@ __device__ __forceinline__ float msaa_threshold(float a, float b, int s,
 // Stream groups [g0, g1) of `src` (records of REC floats). Winners from
 // the global tier are encoded as -2 - row, from the pair array as row
 // (>= 0); -1 = none. depth/win hold CARRIES x ROWS entries (carry-major);
-// cov (COVERAGE only) bit 4*i + s = sample s of row i covered.
-template <int REC, int MODE>
+// cov (COVERAGE only) bit 4*i + s = sample s of row i covered; zlo/zhi
+// (BOUNDED only) the window of each of the thread's ROWS pixels.
+template <int REC, int MODE, bool BOUNDED>
 __device__ __forceinline__ void stream_groups(
     const float* __restrict__ src, int g0, int g1, bool global_tier,
     float x0, float y0, float (*consts)[ModeInfo<MODE>::NC], int lx,
-    int row0, float* depth, int* win, unsigned* cov) {
+    int row0, float* depth, int* win, unsigned* cov, const float* zlo,
+    const float* zhi) {
+  static_assert(!BOUNDED || MODE != SAMPLES4, "K2 has no bounded variant");
   const int t = threadIdx.x;
   const float X = (float)(2 * lx + 1);
   for (int g = g0; g < g1; ++g) {
@@ -204,14 +211,16 @@ __device__ __forceinline__ void stream_groups(
           b[p] = __fadd_rn(hi, lo);
         }
         if constexpr (MODE == CENTER) {
-          const bool cover = b[0] >= 0.0f && b[1] >= 0.0f && b[2] >= 0.0f &&
-                             b[3] >= 0.0f;
+          bool cover = b[0] >= 0.0f && b[1] >= 0.0f && b[2] >= 0.0f &&
+                       b[3] >= 0.0f;
+          if constexpr (BOUNDED) cover = cover && b[3] > zlo[i] && b[3] < zhi[i];
           if (cover && b[3] < depth[i]) {
             depth[i] = b[3];
             win[i] = id;
           }
         } else if constexpr (MODE == COVERAGE) {
-          const bool zok = b[3] >= 0.0f && b[3] <= 1.0f;
+          bool zok = b[3] >= 0.0f && b[3] <= 1.0f;
+          if constexpr (BOUNDED) zok = zok && b[3] > zlo[i] && b[3] < zhi[i];
           const float* th = c + PLANE_CONSTS;
           const float* tk = th + 3 * NS;
           unsigned bits = 0;
@@ -262,13 +271,14 @@ __device__ __forceinline__ void stream_groups(
 
 // The whole stream of tile (tx, ty): global tier, tile-row tier, tile
 // tier, each segment rounded out to whole groups.
-template <int REC, int MODE>
+template <int REC, int MODE, bool BOUNDED = false>
 __device__ __forceinline__ void stream_tile(
     const float* __restrict__ pairs, const float* __restrict__ gpairs,
     const int* __restrict__ starts, const int* __restrict__ rstarts,
     const int* __restrict__ gmeta, int tx, int ty, int tiles_x,
     float (*consts)[ModeInfo<MODE>::NC], int lx, int row0, float* depth,
-    int* win, unsigned* cov) {
+    int* win, unsigned* cov, const float* zlo = nullptr,
+    const float* zhi = nullptr) {
   const int tile = ty * tiles_x + tx;
   const float x0 = (float)(tx * TILE_W);
   const float y0 = (float)(ty * TILE_H);
@@ -279,14 +289,17 @@ __device__ __forceinline__ void stream_tile(
   }
   *cov = 0;
   const int gcount = gmeta[0];
-  stream_groups<REC, MODE>(gpairs, 0, (gcount + GROUP - 1) / GROUP, true, x0,
-                           y0, consts, lx, row0, depth, win, cov);
-  stream_groups<REC, MODE>(pairs, rstarts[ty] / GROUP,
-                           (rstarts[ty + 1] + GROUP - 1) / GROUP, false, x0,
-                           y0, consts, lx, row0, depth, win, cov);
-  stream_groups<REC, MODE>(pairs, starts[tile] / GROUP,
-                           (starts[tile + 1] + GROUP - 1) / GROUP, false, x0,
-                           y0, consts, lx, row0, depth, win, cov);
+  stream_groups<REC, MODE, BOUNDED>(gpairs, 0, (gcount + GROUP - 1) / GROUP,
+                                    true, x0, y0, consts, lx, row0, depth,
+                                    win, cov, zlo, zhi);
+  stream_groups<REC, MODE, BOUNDED>(pairs, rstarts[ty] / GROUP,
+                                    (rstarts[ty + 1] + GROUP - 1) / GROUP,
+                                    false, x0, y0, consts, lx, row0, depth,
+                                    win, cov, zlo, zhi);
+  stream_groups<REC, MODE, BOUNDED>(pairs, starts[tile] / GROUP,
+                                    (starts[tile + 1] + GROUP - 1) / GROUP,
+                                    false, x0, y0, consts, lx, row0, depth,
+                                    win, cov, zlo, zhi);
 }
 
 }  // namespace vq_raster

@@ -1,9 +1,15 @@
-// K1 G-buffer raster, unbounded, in its non-MSAA and MSAA 4x variants.
+// K1 G-buffer raster in its non-MSAA and MSAA 4x variants, each unbounded
+// and depth-bounded.
 //
 // Replaces the Pallas kernel of vqengine_tpu/ops/raster.py
-// (_make_gbuf_kernel(None, bounded=False) and
-// _make_gbuf_kernel(MSAA4_OFFSETS, bounded=False), built by
-// _get_gbuf_kernel and launched by rasterize_gbuf).
+// (_make_gbuf_kernel(sample_offsets, bounded) for sample_offsets None and
+// MSAA4_OFFSETS, bounded False and True, built by _get_gbuf_kernel and
+// launched by rasterize_gbuf). The bounded variants are the depth-peeling
+// primitive of the transparent pass (two launches per frame, center
+// sampled) and the alpha-mask peel: only fragments with zlo < z < zhi
+// compete, zlo/zhi being two [H, W] f32 images (the reference tiles them
+// edge-padded; here each thread reads its 8 pixels' window once per tile,
+// row and column clamped to the frame, which is the same value).
 //
 // What it computes. One CTA per 16x128-pixel tile streams groups of 128
 // records (32 f32 each, pair-major rows of the sorted pair array) and
@@ -24,8 +30,10 @@
 // Bound. Arithmetic: 4 planes x 9 flops per record per pixel (36), over
 // every record of every group a tile streams (most of them do not cover
 // the pixel); the MSAA variant adds 12 threshold compares and the z + 1
-// (49). Memory traffic is small (a group's 12 plane rows once per tile,
-// the winner's 30 rows once per pixel, the outputs once).
+// (52 with the key's own thresholds); the bounded variants add the two
+// window compares (38 and 54). Memory traffic is small (a group's 12
+// plane rows once per tile, the winner's 30 rows once per pixel, the
+// window's 8 bytes per pixel, the outputs once).
 // Design: the shared tile stream, then the resolve in registers. No
 // tensor cores, no TMA: simple first.
 #include "raster_common.cuh"
@@ -38,7 +46,7 @@ constexpr int REC = 32;          // floats per record
 constexpr int GBUF_OUT = 16;
 constexpr float NRM_PACK_BIAS = 3.0f;
 
-template <int MODE>
+template <int MODE, bool BOUNDED>
 __global__ void __launch_bounds__(THREADS)
 raster_gbuf_kernel(const float* __restrict__ pairs,
                    const float* __restrict__ gpairs,
@@ -46,6 +54,8 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
                    const int* __restrict__ rstarts,
                    const int* __restrict__ gmeta,
                    int tiles_x, int width, int height,
+                   const float* __restrict__ zlo_img,
+                   const float* __restrict__ zhi_img,
                    float* __restrict__ depth_out, int* __restrict__ id_out,
                    float* __restrict__ gbuf_out, float* __restrict__ cov_out) {
   __shared__ float consts[GROUP][ModeInfo<MODE>::NC];
@@ -57,8 +67,22 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
   float depth[ROWS];
   int win[ROWS];
   unsigned cov = 0;
-  stream_tile<REC, MODE>(pairs, gpairs, starts, rstarts, gmeta, tx, ty,
-                         tiles_x, consts, lx, row0, depth, win, &cov);
+  float zlo[ROWS], zhi[ROWS];
+  if constexpr (BOUNDED) {
+    // the reference edge-pads the window into the padded tiles; those
+    // pixels are cropped, so a clamped read is exact
+    const long long xc = min(tx * TILE_W + lx, width - 1);
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const long long o =
+          (long long)min(ty * TILE_H + row0 + i, height - 1) * width + xc;
+      zlo[i] = zlo_img[o];
+      zhi[i] = zhi_img[o];
+    }
+  }
+  stream_tile<REC, MODE, BOUNDED>(pairs, gpairs, starts, rstarts, gmeta, tx,
+                                  ty, tiles_x, consts, lx, row0, depth, win,
+                                  &cov, zlo, zhi);
 
   const int x = tx * TILE_W + lx;
   if (x >= width) return;
@@ -121,17 +145,18 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
   }
 }
 
-template <int MODE>
+template <int MODE, bool BOUNDED>
 int launch(const void* pairs, const void* gpairs, const void* starts,
            const void* rstarts, const void* gmeta, int tiles_x, int tiles_y,
-           int width, int height, void* depth, void* tri_id, void* gbuf,
-           void* cov, void* stream) {
+           int width, int height, const void* zlo, const void* zhi,
+           void* depth, void* tri_id, void* gbuf, void* cov, void* stream) {
   if (tiles_x > 0 && tiles_y > 0) {
-    raster_gbuf_kernel<MODE><<<dim3(tiles_x, tiles_y), THREADS, 0,
-                               (cudaStream_t)stream>>>(
+    raster_gbuf_kernel<MODE, BOUNDED><<<dim3(tiles_x, tiles_y), THREADS, 0,
+                                        (cudaStream_t)stream>>>(
         (const float*)pairs, (const float*)gpairs, (const int*)starts,
         (const int*)rstarts, (const int*)gmeta, tiles_x, width, height,
-        (float*)depth, (int*)tri_id, (float*)gbuf, (float*)cov);
+        (const float*)zlo, (const float*)zhi, (float*)depth, (int*)tri_id,
+        (float*)gbuf, (float*)cov);
   }
   return (int)cudaGetLastError();
 }
@@ -143,9 +168,9 @@ extern "C" int vq_raster_gbuf(const void* pairs, const void* gpairs,
                               const void* gmeta, int tiles_x, int tiles_y,
                               int width, int height, void* depth,
                               void* tri_id, void* gbuf, void* stream) {
-  return launch<CENTER>(pairs, gpairs, starts, rstarts, gmeta, tiles_x,
-                        tiles_y, width, height, depth, tri_id, gbuf, nullptr,
-                        stream);
+  return launch<CENTER, false>(pairs, gpairs, starts, rstarts, gmeta,
+                               tiles_x, tiles_y, width, height, nullptr,
+                               nullptr, depth, tri_id, gbuf, nullptr, stream);
 }
 
 extern "C" int vq_raster_gbuf_msaa(const void* pairs, const void* gpairs,
@@ -154,7 +179,29 @@ extern "C" int vq_raster_gbuf_msaa(const void* pairs, const void* gpairs,
                                    int tiles_y, int width, int height,
                                    void* depth, void* tri_id, void* gbuf,
                                    void* cov, void* stream) {
-  return launch<COVERAGE>(pairs, gpairs, starts, rstarts, gmeta, tiles_x,
-                          tiles_y, width, height, depth, tri_id, gbuf, cov,
-                          stream);
+  return launch<COVERAGE, false>(pairs, gpairs, starts, rstarts, gmeta,
+                                 tiles_x, tiles_y, width, height, nullptr,
+                                 nullptr, depth, tri_id, gbuf, cov, stream);
+}
+
+extern "C" int vq_raster_gbuf_bounded(const void* pairs, const void* gpairs,
+                                      const void* starts, const void* rstarts,
+                                      const void* gmeta, int tiles_x,
+                                      int tiles_y, int width, int height,
+                                      const void* zlo, const void* zhi,
+                                      void* depth, void* tri_id, void* gbuf,
+                                      void* stream) {
+  return launch<CENTER, true>(pairs, gpairs, starts, rstarts, gmeta, tiles_x,
+                              tiles_y, width, height, zlo, zhi, depth, tri_id,
+                              gbuf, nullptr, stream);
+}
+
+extern "C" int vq_raster_gbuf_msaa_bounded(
+    const void* pairs, const void* gpairs, const void* starts,
+    const void* rstarts, const void* gmeta, int tiles_x, int tiles_y,
+    int width, int height, const void* zlo, const void* zhi, void* depth,
+    void* tri_id, void* gbuf, void* cov, void* stream) {
+  return launch<COVERAGE, true>(pairs, gpairs, starts, rstarts, gmeta,
+                                tiles_x, tiles_y, width, height, zlo, zhi,
+                                depth, tri_id, gbuf, cov, stream);
 }

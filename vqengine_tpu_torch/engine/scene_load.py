@@ -21,6 +21,10 @@ from ..scene.serialization import parse_material_file, parse_scene_file
 from ..utils import log
 
 REPO_DATA = Path(__file__).resolve().parent.parent.parent / "Data"
+# Sponza with two of its own materials made translucent (load_scene's
+# material_alpha): the 24 columns overlap down the hall, so both layers of
+# the transparent pass carry pixels
+SPONZA_TRANSLUCENT = {"SponzaColumn": 0.4, "SponzaBrass": 0.5}
 
 
 def find_data_dirs() -> list[Path]:
@@ -69,9 +73,12 @@ class LoadedScene:
 
 
 def load_scene(name: str, width: int, height: int,
-               draw_light_gizmos: bool = True) -> LoadedScene:
+               draw_light_gizmos: bool = True,
+               material_alpha: dict | None = None) -> LoadedScene:
     """Parse Data/Levels/<name>.xml and assemble it; cameras get the
-    width/height aspect."""
+    width/height aspect. material_alpha {material name: alpha} sets those
+    materials' alpha before assembly (a translucent variant of the level:
+    alpha < 1 puts their items into the transparent pass)."""
     data_dirs = find_data_dirs()
     path = next((d / "Levels" / f"{name}.xml" for d in data_dirs
                  if (d / "Levels" / f"{name}.xml").is_file()), None)
@@ -81,6 +88,8 @@ def load_scene(name: str, width: int, height: int,
     rep = parse_scene_file(path)
     meshes = build_builtin_meshes()
     augment_scene(rep.name, rep, lib, meshes, data_dirs=data_dirs)
+    for mname, alpha in (material_alpha or {}).items():
+        lib[mname].alpha = float(alpha)
     used = {o.model.material_name for o in rep.objects if o.model.material_name}
     buffers, cameras, lights = assemble_scene(
         rep, meshes, lib, draw_light_gizmos=draw_light_gizmos)

@@ -33,7 +33,8 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 KERNELS = ("palette", "raster_gbuf", "raster_vis", "raster_gbuf_msaa",
-           "raster_vis_msaa4")
+           "raster_vis_msaa4", "raster_gbuf_bounded",
+           "raster_gbuf_msaa_bounded")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -128,6 +129,10 @@ _SIGNATURES = {
     "vq_raster_gbuf_msaa": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P, _P, _P, _P, _P],
     "vq_raster_vis_msaa4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "vq_raster_gbuf_bounded": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _P, _P],
+    "vq_raster_gbuf_msaa_bounded": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

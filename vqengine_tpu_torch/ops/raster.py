@@ -18,10 +18,11 @@ depth tie depends on it:
   additions and the same fused multiply-adds (the reference's kernel
   bodies are compiled on the CPU, which contracts some of them).
 
-Ported: K1's non-MSAA and MSAA 4x variants (unbounded), K2's center
-(the shadow-map raster) and MSAA 4x variants, and the record evaluation
-the MSAA edge resolve runs outside the kernels; K1's depth-bounded
-variants are still to come.
+Ported: K1 in its non-MSAA and MSAA 4x variants, each unbounded and
+depth-bounded (the depth-peeling primitive of the transparent pass and
+the alpha-mask peel), K2's center (the shadow-map raster) and MSAA 4x
+variants, and the record evaluation the MSAA edge resolve runs outside
+the kernels.
 Records here are pair-major ``[P, 32]`` (K1) or ``[P, 16]`` (K2) rows; the
 reference stores ``[NG, R, 128]`` lane blocks of the same values.
 """
@@ -592,18 +593,23 @@ def _resolve(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 CENTER, COVERAGE, SAMPLES4 = "center", "coverage", "samples4"
 
 
-def _group_keys(mode: str, rec: torch.Tensor, b0, b1, b2, z, live, cov):
+def _group_keys(mode: str, rec: torch.Tensor, b0, b1, b2, z, live, cov,
+                window=None):
     """One streamed group's depth keys, [C, G, NPX] per carry, in the
     reference kernels' arithmetic; records that do not compete get a key
     at or above the carry's clear value. rec [C, G, 12] the group's plane
     rows, live [C] whether the tile streams this group (a padding entry of
-    _group_sequences does not).
-    - CENTER (K1, K2): key z where b0, b1, b2, z >= 0, else 2.
+    _group_sequences does not). window (K1-bounded): (zlo, zhi), each
+    [C, 1, NPX]; a fragment competes only where zlo < z < zhi (strict, the
+    pixel-center z).
+    - CENTER (K1, K2): key z where b0, b1, b2, z >= 0 (and inside the
+      window), else 2.
     - COVERAGE (K1-MSAA): per-sample thresholds t_i = -(e_ix dx + e_iy dy)
       from the unsplit rows, a sample covered where b_i(center) >= t_i and
-      0 <= z <= 1; key z where the center is covered, z + 1 where only a
-      sample is, else 4; cov [C, 4, NPX] takes each sample's coverage by
-      any record of the group (sticky). The thresholds round as
+      0 <= z <= 1 (and inside the window); key z where the center is
+      covered, z + 1 where only a sample is, else 4; cov [C, 4, NPX]
+      takes each sample's coverage by any record of the group (sticky).
+      The thresholds round as
       MSAA_COVERAGE_FUSED for the coverage bits and MSAA_KEY_FUSED for
       the key's "some sample covered".
     - SAMPLES4 (K2-msaa4): per sample, b_i + (e_ix dx + e_iy dy) added to
@@ -612,10 +618,14 @@ def _group_keys(mode: str, rec: torch.Tensor, b0, b1, b2, z, live, cov):
     two = torch.tensor(2.0, device=z.device)
     if mode == CENTER:
         cover = torch.minimum(torch.minimum(b0, b1), torch.minimum(b2, z)) >= 0
+        if window is not None:
+            cover = cover & (z > window[0]) & (z < window[1])
         return [torch.where(cover, z, two)]
     planes = (b0, b1, b2, z)
     if mode == COVERAGE:
         zok = (z >= 0) & (z <= 1)
+        if window is not None:
+            zok = zok & (z > window[0]) & (z < window[1])
         cover_any = torch.zeros_like(zok)
         for s in range(len(MSAA4_OFFSETS)):
             c = k = zok
@@ -642,7 +652,7 @@ def _group_keys(mode: str, rec: torch.Tensor, b0, b1, b2, z, live, cov):
 
 
 def _stream_chunks(binned: BinnedTriangles, allrec: torch.Tensor, width: int,
-                   mode: str = CENTER):
+                   mode: str = CENTER, zbound: torch.Tensor | None = None):
     """The tile stream of the raster kernels, in plain PyTorch: all tiles
     of a chunk step through their group streams together; a group's
     winner is its first minimum key (_group_keys) and replaces the carry
@@ -653,7 +663,8 @@ def _stream_chunks(binned: BinnedTriangles, allrec: torch.Tensor, width: int,
     mode, else 1. depth is the carry: the depth key in COVERAGE mode
     (cleared to 4), else the depth (cleared to 1). A frame narrower than
     one tile evaluates only its own columns (the others are cropped away:
-    depth at its clear value, win -1, no coverage)."""
+    depth at its clear value, win -1, no coverage). zbound [NT, 2, NPX]
+    (tile_image of zlo and zhi) bounds K1's fragments to a window."""
     dev = allrec.device
     nt = binned.tiles_x * binned.tiles_y
     nx = min(TILE_W, width) if binned.tiles_x == 1 else TILE_W
@@ -677,12 +688,17 @@ def _stream_chunks(binned: BinnedTriangles, allrec: torch.Tensor, width: int,
         win = torch.full((len(tiles), nk, npx), -1, dtype=torch.int64, device=dev)
         cov = (torch.zeros((len(tiles), 4, npx), dtype=torch.bool, device=dev)
                if mode == COVERAGE else None)
+        window = None
+        if zbound is not None:
+            zb = zbound[tiles].view(len(tiles), 2, TILE_H, TILE_W)[..., :nx]
+            zb = zb.reshape(len(tiles), 2, npx)
+            window = (zb[:, 0:1], zb[:, 1:2])
         for s in range(s_max):
             g = seq[tiles, s]
             live = g >= 0
             rec = groups[g.clamp(min=0), :, :12]
             b0, b1, b2, z = _plane_eval_split(rec, x0, y0, xs, ys)
-            keys = _group_keys(mode, rec, b0, b1, b2, z, live, cov)
+            keys = _group_keys(mode, rec, b0, b1, b2, z, live, cov, window)
             for k, zm in enumerate(keys):
                 zmin = zm.min(dim=1).values
                 amin = torch.where(zm == zmin[:, None], sub, GROUP).min(dim=1).values
@@ -724,14 +740,32 @@ def unbias_msaa_key(key: torch.Tensor) -> torch.Tensor:
                        torch.where(key < 3.0, key - 1.0, torch.ones_like(key)))
 
 
+def tile_image(img: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """[H, W] image -> [NT, NPX] tile-major layout (the inverse of _untile),
+    edge-padded to whole tiles as the reference pads it."""
+    h, w = img.shape
+    dev = img.device
+    rows = torch.arange(tiles_y * TILE_H, device=dev).clamp(max=h - 1)
+    cols = torch.arange(tiles_x * TILE_W, device=dev).clamp(max=w - 1)
+    img = img[rows][:, cols].reshape(tiles_y, TILE_H, tiles_x, TILE_W)
+    return img.transpose(1, 2).reshape(tiles_y * tiles_x, NPX)
+
+
+def gbuf_kernel_name(msaa: bool, bounded: bool) -> str:
+    """The launch name of a K1 variant (_backend.KERNELS)."""
+    return ("raster_gbuf" + ("_msaa" if msaa else "")
+            + ("_bounded" if bounded else ""))
+
+
 def rasterize_gbuf_plain(binned: BinnedTriangles, width: int, height: int,
-                         msaa: bool = False):
+                         msaa: bool = False, zbound=None):
     """Plain PyTorch version of kernel K1: the shared tile stream, then the
     winner's resolve at the pixel center. -> (depth [H, W], tri_id [H, W]
     int32, gbuf [GBUF_OUT, H, W]) and with msaa the per-sample sticky
-    coverage [4, H, W] f32 in {0, 1} (MSAA4_OFFSETS)."""
-    name = "raster_gbuf_msaa" if msaa else "raster_gbuf"
-    _backend.count_plain(name, binned.pairs)
+    coverage [4, H, W] f32 in {0, 1} (MSAA4_OFFSETS). zbound = (zlo, zhi),
+    each [H, W]: only fragments with zlo < z < zhi compete."""
+    _backend.count_plain(gbuf_kernel_name(msaa, zbound is not None),
+                         binned.pairs)
     dev = binned.pairs.device
     nt = binned.tiles_x * binned.tiles_y
     allrec = torch.cat([binned.gpairs, binned.pairs], dim=0)
@@ -744,8 +778,12 @@ def rasterize_gbuf_plain(binned: BinnedTriangles, width: int, height: int,
     cov_t = (torch.empty((nt, NPX, 4), dtype=torch.float32, device=dev)
              if msaa else None)
     mode = COVERAGE if msaa else CENTER
+    zb = None
+    if zbound is not None:
+        zb = torch.stack([tile_image(z, binned.tiles_x, binned.tiles_y)
+                          for z in zbound], dim=1)
     for tiles, x0, y0, depth, win, cov in _stream_chunks(binned, allrec, width,
-                                                         mode):
+                                                         mode, zb):
         depth, win = depth[:, 0], win[:, 0]
         rows = allrec[win.clamp(min=0), :SEL_ROWS]
         px = (lxf + x0[:, None]) + 0.5
@@ -793,26 +831,38 @@ def _binned_args(binned: BinnedTriangles, width: int, height: int) -> tuple:
             height)
 
 
+def _check_zbound(zbound, binned: BinnedTriangles, width: int,
+                  height: int) -> None:
+    """Validate the depth window handed to K1: (zlo, zhi), each a
+    contiguous [H, W] f32 tensor on the records' device."""
+    if not (isinstance(zbound, (tuple, list)) and len(zbound) == 2):
+        raise ValueError("rasterize_gbuf: zbound must be (zlo, zhi)")
+    dev = binned.pairs.device
+    for name, z in zip(("zlo", "zhi"), zbound):
+        _backend.require(z, name, torch.float32, dev, ndim=2)
+        if tuple(z.shape) != (height, width):
+            raise ValueError(f"rasterize_gbuf: {name} is {tuple(z.shape)}, "
+                             f"expected {(height, width)}")
+
+
 def _rasterize_gbuf_cuda(binned: BinnedTriangles, width: int, height: int,
-                         msaa: bool):
+                         msaa: bool, zbound):
     _check_binned("rasterize_gbuf", binned, GBUF_ROWS, width, height)
     dev = binned.pairs.device
     f32, i32 = torch.float32, torch.int32
     depth = torch.empty((height, width), dtype=f32, device=dev)
     tri_id = torch.empty((height, width), dtype=i32, device=dev)
     gbuf = torch.empty((GBUF_OUT, height, width), dtype=f32, device=dev)
-    lib = _backend.library()
-    args = _binned_args(binned, width, height) + (
-        depth.data_ptr(), tri_id.data_ptr(), gbuf.data_ptr())
-    if not msaa:
-        code = lib.vq_raster_gbuf(*args, _backend.stream_of(depth))
-        _backend.check_launch("raster_gbuf", code)
-        return depth, tri_id, gbuf
-    cov = torch.empty((4, height, width), dtype=f32, device=dev)
-    code = lib.vq_raster_gbuf_msaa(*args, cov.data_ptr(),
-                                   _backend.stream_of(depth))
-    _backend.check_launch("raster_gbuf_msaa", code)
-    return depth, tri_id, gbuf, cov
+    outs = (depth, tri_id, gbuf)
+    if msaa:
+        outs += (torch.empty((4, height, width), dtype=f32, device=dev),)
+    name = gbuf_kernel_name(msaa, zbound is not None)
+    window = () if zbound is None else tuple(z.data_ptr() for z in zbound)
+    fn = getattr(_backend.library(), "vq_" + name)
+    code = fn(*_binned_args(binned, width, height), *window,
+              *(o.data_ptr() for o in outs), _backend.stream_of(depth))
+    _backend.check_launch(name, code)
+    return outs
 
 
 def rasterize_gbuf(binned: BinnedTriangles, width: int, height: int,
@@ -823,14 +873,17 @@ def rasterize_gbuf(binned: BinnedTriangles, width: int, height: int,
     pixels: depth 1, tri_id -1, gbuf 0. With msaa a 4th output, the
     per-sample coverage [4, H, W] in {0, 1} (MSAA4_OFFSETS; its mean over
     axis 0 is the silhouette blend weight), and the winner is the nearest
-    triangle covering the center, else the nearest covering any sample."""
+    triangle covering the center, else the nearest covering any sample.
+    zbound = (zlo [H, W], zhi [H, W]) f32 on the records' device: only
+    fragments in the open window zlo < z < zhi (the pixel-center z)
+    compete, in both sample modes (the depth-peeling primitive of the
+    transparent pass and the alpha-mask peel)."""
     if zbound is not None:
-        raise NotImplementedError("rasterize_gbuf: the depth-bounded "
-                                  "variant is not ported yet")
+        _check_zbound(zbound, binned, width, height)
     if binned.pairs.device.type == "cpu":
-        return rasterize_gbuf_plain(binned, width, height, msaa)
+        return rasterize_gbuf_plain(binned, width, height, msaa, zbound)
     if binned.pairs.is_cuda:
-        return _rasterize_gbuf_cuda(binned, width, height, msaa)
+        return _rasterize_gbuf_cuda(binned, width, height, msaa, zbound)
     raise ValueError(f"rasterize_gbuf: unsupported device {binned.pairs.device}")
 
 

@@ -1,6 +1,7 @@
-"""Crafted binned records on which the MSAA G-buffer raster (kernel K1,
-MSAA variant) shows the parts of its arithmetic that a rendered frame
-rarely or never reaches.
+"""Crafted binned records on which the G-buffer raster (kernel K1) shows
+the parts of its arithmetic that a rendered frame rarely or never
+reaches: msaa_probe for the MSAA variant's sample arithmetic, and
+bounded_probe for the depth-bounded variants' window (at the end).
 
 - Threshold records: a per-sample threshold t_i = -(e_ix dx + e_iy dy)
   decides a sample's coverage only where b_i(center) falls between its two
@@ -210,3 +211,127 @@ def msaa_probe(seed: int = 0, device: torch.device | str = "cpu"):
         tiles_x=TILES_X, tiles_y=TILES_Y, pair_cap=int(starts[-1]))
     return binned, {"thresholds": len(cases), "keys": 2 * (len(live) - 1),
                     "z1": len(live)}
+
+
+# ---------------------------------------------------------------------------
+# the depth-bounded variants (K1-bounded, both sample modes)
+# ---------------------------------------------------------------------------
+
+# a ragged frame of 2 x 2 tiles: the window's edge padding is read
+BOUNDED_TILES = 2
+BOUNDED_W = BOUNDED_TILES * raster.TILE_W - 16
+BOUNDED_H = BOUNDED_TILES * raster.TILE_H - 4
+BAND_Z = tuple(0.125 + k / 1024 for k in range(8))   # exact in bf16
+GLOBAL_ID = 100_000
+# per-pixel window classes, (zlo, zhi); "S" is the sloped record's own
+# pixel-center depth, "S-" / "S+" its neighbouring floats
+BOUNDED_WINDOWS = (
+    (-1.0, 2.0),                 # 0 unbounded
+    (0.125, 2.0),                # 1 band 0 on zlo
+    (0.25, 2.0),                 # 2 the 0.25 record on zlo; 0.5 tie
+    (-1.0, 0.125),               # 3 band 0 on zhi: nothing in front
+    ("S", 2.0),                  # 4 the sloped record on zlo
+    (-1.0, "S"),                 # 5 the sloped record on zhi
+    ("S-", "S+"),                # 6 the sloped record alone
+    (0.6, 0.4),                  # 7 empty (zlo > zhi)
+    (0.25, 0.5),                 # 8 0.25 and 0.5 on the bounds
+    (0.5, 2.0),                  # 9 0.75 tie: the global tier first
+    (0.75, 0.75),                # 10 empty (zlo = zhi)
+    (0.1, 0.2),                  # 11 the bands alone: sample-only
+    (0.125, 0.2),                # 12 the bands but band 0
+    (-1.0, BAND_Z[4]),           # 13 bands 0-3, band 4 on zhi
+)
+
+
+def bounded_probe(seed: int = 0, device: torch.device | str = "cpu"):
+    """Crafted records and a per-pixel depth window for K1-bounded ->
+    (BinnedTriangles of BOUNDED_W x BOUNDED_H pixels, (zlo, zhi) [H, W]
+    f32, window class [H, W] int64: index into BOUNDED_WINDOWS, (x + 5 y)
+    mod 14).
+
+    Every tile streams one group: a record covering the frame whose depth
+    slopes across it (0.3 to 0.74; row 0), two covering it at z = 0.5
+    (rows 1 and 2: a tie, the first wins), one at z = 0.25 (row 3), 8
+    slanted bands narrower than a pixel at z = BAND_Z (rows 4-11: pixels
+    where they cover samples but not the center), and one covering the
+    frame at z = 0.75 (row 12), which ties with a record of the global
+    tier (streamed first, so it wins). Every depth but the sloped one is
+    exact, so the windows put fragments exactly on zlo and zhi; the
+    sloped record's own depths, taken from the unbounded plain raster,
+    put it on a bound pixel by pixel. Each record carries random
+    attributes."""
+    rng = np.random.default_rng(seed)
+    nt = BOUNDED_TILES * BOUNDED_TILES
+    rows = raster.GBUF_ROWS
+    killed = raster.killed_record(rows, torch.device("cpu")).numpy()
+
+    def record(edges, plane) -> np.ndarray:
+        rec = np.zeros(rows, np.float32)
+        rec[0:9] = np.asarray(edges, np.float32).reshape(-1)
+        rec[9:12] = plane
+        nrm = torch.from_numpy(rng.uniform(-1, 1, (3, 3)).astype(np.float32))
+        tan = torch.from_numpy(rng.uniform(-1, 1, (3, 3)).astype(np.float32))
+        attrs = torch.cat([raster.pack_bf16_pair(nrm + raster.NRM_PACK_BIAS, tan),
+                           torch.from_numpy(rng.uniform(0, 1, (3, 2))
+                                            .astype(np.float32))], dim=1)
+        rec[13:28] = attrs.reshape(-1).numpy()
+        rec[28] = float(rng.integers(0, 4) * 65536 + rng.integers(0, 64))
+        rec[29] = float(rng.integers(0, 64))
+        return rec
+
+    cover = [(0.0, 0.0, 1.0)] * 3
+    recs = [record(cover, (1.5e-3, 2e-3, 0.3)), record(cover, (0, 0, 0.5)),
+            record(cover, (0, 0, 0.5)), record(cover, (0, 0, 0.25))]
+    for k, z in enumerate(BAND_Z):
+        # 0.8 pixels wide, x from 10 + 28 k + 0.37 y
+        xk = 10.0 + 28.0 * k
+        recs.append(record([(1.0, -0.37, -xk), (-1.0, 0.37, xk + 0.8),
+                            (0.0, 0.0, 1.0)], (0, 0, z)))
+    recs.append(record(cover, (0, 0, 0.75)))
+    pairs = np.tile(killed, (nt * raster.GROUP, 1))
+    for t in range(nt):
+        for r, rec in enumerate(recs):
+            row = t * raster.GROUP + r
+            pairs[row] = rec
+            pairs[row, 12] = row
+    gpairs = np.tile(killed, (raster.GLOBAL_CAP, 1))
+    gpairs[0] = record(cover, (0, 0, 0.75))
+    gpairs[0, 12] = GLOBAL_ID
+    i32 = torch.int32
+
+    def binned_of(p: np.ndarray, g: np.ndarray, gcount: int):
+        return raster.BinnedTriangles(
+            pairs=torch.from_numpy(p),
+            starts=torch.arange(nt + 1, dtype=i32) * raster.GROUP,
+            rstarts=torch.full((BOUNDED_TILES + 1,), nt * raster.GROUP,
+                               dtype=i32),
+            gpairs=torch.from_numpy(g),
+            gmeta=torch.tensor([gcount, BOUNDED_TILES], dtype=i32),
+            overflow=torch.zeros(3, dtype=i32),
+            demand=torch.tensor(nt * len(recs), dtype=i32),
+            tiles_x=BOUNDED_TILES, tiles_y=BOUNDED_TILES, pair_cap=len(p))
+
+    # the sloped record's depth at each pixel center, as the kernel
+    # evaluates it
+    sloped = np.tile(killed, (nt * raster.GROUP, 1))
+    sloped[::raster.GROUP] = pairs[::raster.GROUP]
+    s = raster.rasterize_gbuf_plain(
+        binned_of(sloped, np.tile(killed, (raster.GLOBAL_CAP, 1)), 0),
+        BOUNDED_W, BOUNDED_H)[0]
+    inf = torch.tensor(float("inf"))
+    named = {"S": s, "S-": torch.nextafter(s, -inf), "S+": torch.nextafter(s, inf)}
+    y, x = torch.meshgrid(torch.arange(BOUNDED_H), torch.arange(BOUNDED_W),
+                          indexing="ij")
+    cls = (x + 5 * y) % len(BOUNDED_WINDOWS)
+    zlo, zhi = torch.zeros_like(s), torch.zeros_like(s)
+    for c, (lo, hi) in enumerate(BOUNDED_WINDOWS):
+        sel = cls == c
+        for img, v in ((zlo, lo), (zhi, hi)):
+            img[sel] = (named[v] if isinstance(v, str)
+                        else torch.full_like(s, v))[sel]
+    dev = torch.device(device)
+    binned = binned_of(pairs, gpairs, 1)
+    binned = raster.BinnedTriangles(**{
+        f: (getattr(binned, f).to(dev) if isinstance(getattr(binned, f), torch.Tensor)
+            else getattr(binned, f)) for f in binned.__dataclass_fields__})
+    return binned, (zlo.to(dev), zhi.to(dev)), cls.to(dev)

@@ -1,7 +1,8 @@
 """The forward render graph — counterpart of ``vqengine_tpu/render/graph.py``
 for the main path: cull + LOD, raster front end, G-buffer raster (with or
 without MSAA), material fetch, shadow maps and shadow tests, direct-light
-shading, the MSAA edge resolve, background composite and tonemap.
+shading, the MSAA edge resolve, background composite, the depth-peeled
+transparent pass (and the alpha-mask peel) and tonemap.
 
 PyTorch runs eagerly, so a render graph here is a plain function of
 (DeviceScene, FrameConstants) tensors on one device; nothing is traced or
@@ -228,6 +229,12 @@ def _attrs_from_gbuf(scene: DeviceScene, consts: FrameConstants,
     }, mask
 
 
+def unit3(v: torch.Tensor) -> torch.Tensor:
+    """v / max(|v|, 1e-9) over the last axis, |v| rounded as the
+    reference's jnp.linalg.norm on the CPU (shadow.norm3)."""
+    return v / torch.clamp(shadow.norm3(v), min=1e-9)[..., None]
+
+
 def geometry_setup_gbuf(scene: DeviceScene, consts: FrameConstants,
                         width: int, height: int):
     """Raster front end: cull + LOD + corner transform + triangle setup +
@@ -255,12 +262,14 @@ def geometry_setup_gbuf(scene: DeviceScene, consts: FrameConstants,
 
 def geometry_pass(scene: DeviceScene, consts: FrameConstants,
                   width: int, height: int, msaa: bool = False,
+                  return_binned: bool = False,
                   pair_capacity: int | None = None, tel: dict | None = None):
     """Cull + raster front end + binning + G-buffer raster ->
-    (depth, tri_id, attrs, mask, coverage). attrs carries the binning
-    overflow and pair demand of the frame. With msaa, coverage is the
-    kernel's per-sample coverage [4, H, W] and attrs["records"] the packed
-    per-triangle records the edge resolve re-tests; else coverage is
+    (depth, tri_id, attrs, mask, coverage), and the binning last with
+    return_binned (the alpha-mask peel rasterizes it again). attrs carries
+    the binning overflow and pair demand of the frame. With msaa, coverage
+    is the kernel's per-sample coverage [4, H, W] and attrs["records"] the
+    packed per-triangle records the edge resolve re-tests; else coverage is
     None."""
     setup, extra = geometry_setup_gbuf(scene, consts, width, height)
     binned = raster.bin_triangles(setup, width, height, extra=extra,
@@ -279,15 +288,19 @@ def geometry_pass(scene: DeviceScene, consts: FrameConstants,
     attrs["pair_demand"] = binned.demand
     if msaa:
         attrs["records"] = raster.pack_records(setup, extra)
+    if return_binned:
+        return depth, tri_id, attrs, mask, coverage, binned
     return depth, tri_id, attrs, mask, coverage
 
 
 def material_pass(wnrm: torch.Tensor, mrow: torch.Tensor,
                   ids: torch.Tensor) -> dict:
     """The untextured PSMain material block (ForwardLighting.hlsl:226-277):
-    material row constants only."""
+    material row constants only; alpha is the row's (the reference's value
+    for a material without a diffuse or alpha-mask map)."""
     return {
         "albedo": mrow[..., 0:3],
+        "alpha": mrow[..., 3],
         "emissive": mrow[..., 4:7] * mrow[..., 7:8],
         "roughness": mrow[..., 12],
         "metalness": mrow[..., 13],
@@ -405,8 +418,7 @@ def shadow_pass(scene: DeviceScene, consts: FrameConstants,
             per = []
             for i in range(sc):
                 lrow = consts.spot_casters[i]
-                wi = lrow[0:3] - wpos
-                wi = wi / torch.clamp(shadow.norm3(wi), min=1e-9)[..., None]
+                wi = unit3(lrow[0:3] - wpos)
                 ndotl = torch.clamp(shadow.dot3(normal, wi), 0.0, 1.0)
                 per.append(shadow.shadow_test_pcf(
                     wpos, ndotl, consts.spot_caster_vps[i],
@@ -512,12 +524,10 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
     wpos = _unproject(px / width * 2.0 - 1.0, 1.0 - py / height * 2.0,
                       a["depth"], consts.inv_view_proj)
 
-    wn = a["wnrm"]
-    wn = wn / torch.clamp(shadow.norm3(wn), min=1e-9)[..., None]
     mrow = palette.palette_lookup(a["mat_id"], scene.materials)
     ids = torch.stack([a["object_id"].to(torch.float32),
                        a["item_id"].to(torch.float32)], dim=-1)
-    mat = material_pass(wn, mrow, ids)
+    mat = material_pass(unit3(a["wnrm"]), mrow, ids)
 
     def gs(v):                       # [C, H, W] -> [C, cap]
         return torch.stack([v[c].reshape(-1)[idx] for c in range(v.shape[0])])
@@ -544,6 +554,121 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
         torch.zeros((height, width, 3), dtype=torch.float32, device=px.device),
         idx, hdr_c * wt[:, None], live)
     return w_img, rgb_img
+
+
+def shade_transparent_layer(scene_t: DeviceScene, consts: FrameConstants,
+                            depth, tri_id, gbuf, width: int,
+                            height: int) -> dict:
+    """One peeled layer's G-buffer -> dict(depth, tri_id, mask, color
+    [H, W, 3], alpha in [0, 1]): the material row's constants, shaded by
+    the direct lights without casters or screen-space effects."""
+    attrs, lmask = _attrs_from_gbuf(scene_t, consts, depth, tri_id, gbuf,
+                                    width, height)
+    mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"])
+    color = shading.shade_forward(
+        world_pos=attrs["wpos"], normal=mat["normal"], albedo=mat["albedo"],
+        roughness=mat["roughness"], metalness=mat["metalness"],
+        emissive=mat["emissive"], ao=consts.ambient_factor * mat["local_ao"],
+        camera_pos=consts.camera_pos, point_lights=consts.point_lights,
+        spot_lights=consts.spot_lights, spot_extra=consts.spot_extra,
+        directional=consts.directional)
+    return {"depth": depth, "tri_id": tri_id, "mask": lmask, "color": color,
+            "alpha": torch.clamp(mat["alpha"], 0.0, 1.0)}
+
+
+def transparent_layers(scene_t: DeviceScene, consts: FrameConstants,
+                       opaque_depth: torch.Tensor, width: int, height: int,
+                       num_layers: int = 2) -> list[dict]:
+    """Depth-peel num_layers layers of the transparent scene in front of
+    the opaque depth and shade each (shade_transparent_layer): layer k's
+    fragments are the nearest with depth(k - 1) < z < opaque depth (layer
+    0's from -1), one bounded K1 launch each on one binning at the default
+    capacity (whose overflow the frame does not report, as in the
+    reference). -> the layers, nearest first."""
+    setup, extra = geometry_setup_gbuf(scene_t, consts, width, height)
+    binned = raster.bin_triangles(setup, width, height, extra=extra)
+    zlo = torch.full_like(opaque_depth, -1.0)
+    layers = []
+    for _ in range(num_layers):
+        d, idb, g = raster.rasterize_gbuf(binned, width, height,
+                                          zbound=(zlo, opaque_depth))
+        layers.append(shade_transparent_layer(scene_t, consts, d, idb, g,
+                                              width, height))
+        zlo = d       # the next layer starts behind this one
+    return layers
+
+
+def blend_layers(hdr: torch.Tensor, layers: list[dict]) -> torch.Tensor:
+    """Composite peeled layers (nearest first) back to front onto hdr: the
+    deepest blends onto the opaque result first, each pixel by its
+    alpha where the layer has a fragment."""
+    for layer in reversed(layers):
+        a = torch.where(layer["mask"], layer["alpha"],
+                        torch.zeros_like(layer["alpha"]))[..., None]
+        hdr = hdr * (1.0 - a) + layer["color"] * a
+    return hdr
+
+
+def transparent_pass(scene_t: DeviceScene, consts: FrameConstants,
+                     hdr: torch.Tensor, opaque_depth: torch.Tensor,
+                     width: int, height: int, env=None, textures=None,
+                     num_layers: int = 2, full_height: int | None = None,
+                     y_offset=0) -> torch.Tensor:
+    """Blended transparents (the reference's Model.h:45-65 transparent mesh
+    split, rendered after the opaques): transparent_layers, composited
+    back to front onto hdr (blend_layers). Order-independent up to
+    num_layers-deep overlap; coplanar transparent fragments drop (each
+    layer is a strict peel). The environment term, textures and multichip
+    bands (full_height, y_offset) are not ported yet and raise."""
+    unported = {"env": env is not None, "textures": textures is not None,
+                "full_height": full_height is not None,
+                "y_offset": not (isinstance(y_offset, int) and y_offset == 0)}
+    asked = [k for k, v in unported.items() if v]
+    if asked:
+        raise NotImplementedError(f"transparent_pass: not ported yet: {asked}")
+    return blend_layers(hdr, transparent_layers(scene_t, consts, opaque_depth,
+                                                width, height, num_layers))
+
+
+# the material outputs the alpha-mask peel takes from the surface behind
+MATERIAL_PEEL_KEYS = ("albedo", "emissive", "roughness", "metalness",
+                      "local_ao", "object_id", "item_id", "alpha")
+
+
+def _alpha_mask_peel(scene: DeviceScene, consts: FrameConstants,
+                     binned: raster.BinnedTriangles, width: int, height: int,
+                     depth, tri_id, mask, wpos, n, mat: dict, coverage):
+    """Alpha-mask discard (ForwardLighting.hlsl:237-240): peel past the
+    fragments whose alpha fails the cutout test (< 0.01) and re-resolve
+    those pixels on the next surface behind them (one bounded K1 launch,
+    window (depth, 2) where the fragment failed, empty elsewhere; a second
+    failing fragment leaves background). -> the merged (depth, tri_id,
+    mask, wpos, n, mat, coverage); a failed pixel's per-sample coverage
+    becomes whether the next surface passed."""
+    fail = mask & (mat["alpha"] < 0.01)
+    two = torch.full_like(depth, 2.0)
+    zlo = torch.where(fail, depth, two)     # an empty window where passing
+    d2, id2, g2 = raster.rasterize_gbuf(binned, width, height,
+                                        zbound=(zlo, two))
+    attrs2, mask2 = _attrs_from_gbuf(scene, consts, d2, id2, g2, width, height)
+    mat2 = material_pass(unit3(attrs2["wnrm"]), attrs2["mrow"], attrs2["ids"])
+    ok2 = mask2 & (mat2["alpha"] >= 0.01)
+
+    def mrg(x1, x2):
+        f = fail if x1.ndim == fail.ndim else fail[..., None]
+        return torch.where(f, x2, x1)
+
+    depth = mrg(depth, torch.where(ok2, d2, torch.ones_like(d2)))
+    tri_id = mrg(tri_id, torch.where(ok2, id2, torch.full_like(id2, raster.BG_ID)))
+    mask = torch.where(fail, ok2, mask)
+    wpos = mrg(wpos, attrs2["wpos"])
+    n = mrg(n, mat2["normal"])
+    mat = {k: mrg(v, mat2[k]) if k in MATERIAL_PEEL_KEYS else v
+           for k, v in mat.items()}
+    if coverage is not None:
+        f = fail[None] if coverage.ndim == 3 else fail
+        coverage = torch.where(f, ok2.to(coverage.dtype), coverage)
+    return depth, tri_id, mask, wpos, n, mat, coverage
 
 
 def render_forward(scene: DeviceScene, consts: FrameConstants,
@@ -577,13 +702,17 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
     background by its covered-sample share; msaa_edge_resolve True or
     "neighbor" (the default) also splits an edge pixel's covered samples
     with the secondary surface colored from a neighbor pixel, "shade"
-    shades the secondary surface itself, False keeps the winner alone."""
+    shades the secondary surface itself, False keeps the winner alone.
+    scene_transparent (the transparent part of split_transparent) is
+    depth-peeled in two layers in front of the opaque depth and blended
+    over the frame before tonemap (transparent_pass). enable_alpha_mask
+    discards fragments whose sampled alpha fails the cutout test; without
+    textures there is no sampled alpha, and the frame is the one without
+    it, as in the reference."""
     unported = {
         "env": env is not None, "textures": textures is not None,
         "enable_ssao": enable_ssao, "enable_ssr": enable_ssr,
         "enable_motion_vectors": enable_motion_vectors,
-        "enable_alpha_mask": enable_alpha_mask,
-        "scene_transparent": scene_transparent is not None,
         "cas_sharpness": cas_sharpness is not None,
         "resize": ((out_width is not None and out_width != width)
                    or (out_height is not None and out_height != height)),
@@ -592,14 +721,20 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
     if asked:
         raise NotImplementedError(f"render_forward: not ported yet: {asked}")
 
+    # the reference's gate: the peel needs a sampled alpha, so it runs only
+    # with textures (which raise above until they are ported)
+    alpha_test = enable_alpha_mask and textures is not None
     tel: dict = {}
-    depth, tri_id, attrs, mask, coverage = geometry_pass(
-        scene, consts, width, height, msaa=msaa, pair_capacity=pair_capacity,
-        tel=tel)
-    wn = attrs["wnrm"]
-    wn = wn / torch.clamp(shadow.norm3(wn), min=1e-9)[..., None]
-    mat = material_pass(wn, attrs["mrow"], attrs["ids"])
+    geo = geometry_pass(scene, consts, width, height, msaa=msaa,
+                        return_binned=alpha_test,
+                        pair_capacity=pair_capacity, tel=tel)
+    depth, tri_id, attrs, mask, coverage = geo[:5]
+    mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"])
     n = mat["normal"]
+    if alpha_test:
+        depth, tri_id, mask, attrs["wpos"], n, mat, coverage = _alpha_mask_peel(
+            scene, consts, geo[5], width, height, depth, tri_id, mask,
+            attrs["wpos"], n, mat, coverage)
     spot_vis = point_vis = dir_vis = None
     if enable_shadows:
         spot_vis, point_vis, dir_vis = shadow_pass(
@@ -640,6 +775,9 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
         hdr = torch.where((mask | (covm > 0))[..., None], hdr, background)
     else:
         hdr = torch.where(mask[..., None], hdr, background)
+    if scene_transparent is not None and scene_transparent.num_tris_live > 0:
+        hdr = transparent_pass(scene_transparent, consts, hdr, depth,
+                               width, height)
     ldr = pp.tonemap(hdr, output_display_curve, apply_gamma=apply_gamma)
     return {"ldr": ldr, "hdr": hdr, "depth": depth, "tri_id": tri_id,
             "object_id": torch.where(mask, mat["object_id"],

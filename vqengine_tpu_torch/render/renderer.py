@@ -1,5 +1,6 @@
 """Renderer — counterpart of ``vqengine_tpu/render/renderer.py``
-(VQRendererTPU): owns the device scene, packs the per-frame constants,
+(VQRendererTPU): owns the device scene (its opaque and transparent
+parts), packs the per-frame constants,
 renders the cached shadow maps of static casters and keeps the
 demand-sized binning capacity (the pair bucket).
 
@@ -109,6 +110,8 @@ class VQRendererTorch:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.scene: graph.DeviceScene | None = None
+        # the scene's transparent part (material alpha < 1), or None
+        self.scene_t: graph.DeviceScene | None = None
         # demand-sized binning capacity (raster.pair_cap_bucket): None =
         # the safe T-sized default; grows with measured demand, resets to
         # the default on overflow
@@ -117,9 +120,9 @@ class VQRendererTorch:
 
     def load_scene(self, buffers: SceneBuffers) -> None:
         opaque, transparent = split_transparent(buffers)
-        if transparent is not None:
-            raise NotImplementedError("transparent geometry is not ported yet")
         self.scene = graph.upload_scene(opaque, self.device)
+        self.scene_t = (graph.upload_scene(transparent, self.device)
+                        if transparent is not None else None)
         self.pair_bucket = None
         self._pair_demand_max = 0
 
@@ -133,7 +136,8 @@ class VQRendererTorch:
                                filter_mode: str = "esm") -> dict:
         """Render the casters' shadow maps once (STATIC/STATIONARY light
         mobility, Light.h:45-186); pass the result to render(...,
-        shadow_maps=...) so that frames run only the shadow tests."""
+        shadow_maps=...) so that frames run only the shadow tests. The
+        transparent part casts no shadow, as in the reference."""
         if self.scene is None:
             raise RuntimeError("load_scene first")
         return graph.render_shadow_maps(self.scene, consts,
@@ -144,12 +148,14 @@ class VQRendererTorch:
                **flags) -> dict:
         """One forward frame (graph.render_forward; flags such as
         enable_shadows, shadow_dims, shadow_filter and shadow_maps pass
-        through) at the current pair bucket; the frame's measured demand
-        then updates the bucket."""
+        through) at the current pair bucket, with the scene's transparent
+        part blended over it; the opaque pass's measured demand then
+        updates the bucket."""
         if self.scene is None:
             raise RuntimeError("load_scene first")
         out = graph.render_forward(self.scene, consts, width, height,
-                                   pair_capacity=self.pair_bucket, **flags)
+                                   pair_capacity=self.pair_bucket,
+                                   scene_transparent=self.scene_t, **flags)
         self._update_pair_bucket(out)
         return out
 

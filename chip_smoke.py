@@ -19,6 +19,14 @@ the final line:
      covered pixels and sample-only winners, each count above 0) and on
      the crafted records of ops/raster_probes.py (thresholds decided by
      their rounding, key select, z = 1, records past the counts);
+     Each K1 variant also prints its earlier time with the padded stream
+     (PERF.md) beside the new one, and what its reject stream keeps by the plain
+     mirror of the reject test: the streamed records that survive the
+     tile test and the (record, warp footprint) pairs evaluated. Every
+     raster bound (K1 and K2) counts what the inputs need: the flops per
+     record per pixel over the (record, 8x4 block) pairs in which the
+     record covers something (raster.covered_block_pairs), beside the
+     padded stream's bound (stream_bound_ms);
   5. K1-bounded (both sample modes) vs its plain version, bitwise: (a) the
      translucent Sponza (SPONZA_TRANSLUCENT) at 1920x1080, the transparent
      pass's two peel windows of the first frame; (b) an alpha-peel window
@@ -27,6 +35,9 @@ the final line:
      192x108 with a window through the cube; (d) the crafted records of
      ops/raster_probes.bounded_probe (fragments on zlo and zhi, empty
      windows, ties); pixel counts each check reaches; both variants timed;
+     then all four K1 variants on ops/raster_probes.reject_probe (records
+     on the reject test's margin, neighbour-bin records reaching through
+     the edge bias, killed, near-plane and degenerate records), bitwise;
   6. K2 visibility raster kernel vs its plain version on Sponza's 8 caster
      views at the full shadow budget (spot 1024^2, 6 point faces 1024^2,
      directional 2048^2): pair demand, capacity and overflow per view;
@@ -91,6 +102,12 @@ RASTER_FLOPS_MSAA4 = 52
 # K1-bounded: the two window compares on top of K1's and K1-MSAA's
 RASTER_FLOPS_BOUNDED = 38
 RASTER_FLOPS_MSAA_BOUNDED = 54
+# K1's times with the padded stream it had before the reject stream
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table), printed beside
+# the new ones; only times within one run compare exactly
+PADDED_STREAM_MS = {"raster_gbuf": 0.8552, "raster_gbuf_msaa": 1.7567,
+                    "raster_gbuf_bounded": 0.7800,
+                    "raster_gbuf_msaa_bounded": 1.5447}
 ROOT = Path(__file__).resolve().parent
 
 
@@ -134,23 +151,69 @@ def bound(ops: float, nbytes: float) -> dict:
 
 
 def raster_work(binned, width: int, height: int, out_bytes_px: int,
-                flops: int = RASTER_FLOPS):
-    """(operations, bytes) of one raster kernel call on these inputs: every
-    record of every group a tile streams against each of the tile's
-    pixels inside the frame; the binned arrays read once, the outputs
-    written once."""
+                flops: int, mode: str) -> dict:
+    """Operations and bytes of one raster kernel call on these inputs:
+    "need", flops per record per pixel times the pixels of every (record,
+    8x4-pixel block) pair in which the record covers a pixel centre or
+    sample inside the frame in the mode's own test ("pairs",
+    raster.covered_block_pairs, window ignored); "stream", the same flops
+    for every record of every group a tile streams against each of the
+    tile's pixels inside the frame (the padded stream, the earlier
+    bound); "bytes", the binned arrays read once and the outputs written
+    once."""
     from vqengine_tpu_torch.ops import raster
     seq, _ = raster._group_sequences(binned)
     groups = (seq >= 0).sum(dim=1).double()
     tiles = torch.arange(binned.tiles_x * binned.tiles_y, device=seq.device)
     px_w = (width - (tiles % binned.tiles_x) * raster.TILE_W).clamp(max=raster.TILE_W)
     px_h = (height - (tiles // binned.tiles_x) * raster.TILE_H).clamp(max=raster.TILE_H)
-    ops = flops * raster.GROUP * float((groups * (px_w * px_h)).sum())
+    pairs = raster.covered_block_pairs(binned, width, height, mode)
     inputs = (binned.pairs, binned.gpairs, binned.starts, binned.rstarts,
               binned.gmeta)
-    nbytes = (sum(t.numel() * t.element_size() for t in inputs)
-              + width * height * out_bytes_px)
-    return ops, nbytes
+    return {
+        "need": flops * raster.BLOCK_W * raster.BLOCK_H * float(pairs),
+        "stream": flops * raster.GROUP * float((groups * (px_w * px_h)).sum()),
+        "bytes": (sum(t.numel() * t.element_size() for t in inputs)
+                  + width * height * out_bytes_px),
+        "pairs": pairs}
+
+
+def add_work(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b[k] for k in b}
+
+
+def raster_bound(work: dict) -> dict:
+    """bound() of what the inputs need, with the padded stream's bound
+    beside it as stream_bound_ms."""
+    bd = bound(work["need"], work["bytes"])
+    bd["stream_bound_ms"] = bound(work["stream"], work["bytes"])["bound_ms"]
+    return bd
+
+
+def bound_text(bd: dict, work: dict, t_k: float) -> str:
+    """The bound's line; a kernel faster than its bound means the count
+    of covered pairs is wrong, and fails the run."""
+    if bd["bound_ms"] > t_k:
+        fail(f"a raster kernel ran in {t_k} ms, below its bound "
+             f"{bd['bound_ms']} ms: the covered-pair count is wrong")
+    return (f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
+            f"{work['pairs']} covered (record, 8x4 block) pairs), "
+            f"{bd['bound_ms'] / t_k:.3f} of it; padded-stream bound "
+            f"{bd['stream_bound_ms']:.4f} ms")
+
+
+def reject_text(binned, mode: str) -> str:
+    """What K1's reject stream evaluates on these inputs, by the plain
+    mirror of its test (raster.reject_stream_counts)."""
+    from vqengine_tpu_torch.ops import raster
+    c = raster.reject_stream_counts(binned, mode)
+    feet = len(raster.footprints())
+    return (f"reject stream (plain mirror): {c['tile_survivors']} of "
+            f"{c['streamed']} streamed records survive the tile test (a) "
+            f"({c['tile_survivors'] / max(c['streamed'], 1):.4f}); "
+            f"{c['footprint_pairs']} (record, warp footprint) pairs kept by "
+            f"(b), against {feet * c['streamed']} in the padded stream "
+            f"({c['footprint_pairs'] / max(feet * c['streamed'], 1):.5f})")
 
 
 def phase_device() -> str:
@@ -178,6 +241,10 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     for line in info.ptxas:
         say(f"[build] {line}")
+    lib = _backend.library()
+    say(f"[build] K1 dynamic shared memory per CTA (the reject stream): "
+        f"center {lib.vq_raster_gbuf_smem_bytes(0)} bytes, MSAA "
+        f"{lib.vq_raster_gbuf_smem_bytes(1)} bytes (bounded or not)")
 
 
 def load_sponza(dev, translucent: bool = False):
@@ -282,12 +349,16 @@ def phase_raster(dev, sponza, renderer) -> dict:
     t_p = time_ms(lambda: raster.rasterize_gbuf_plain(binned, W, H),
                   3, warmup=1)
     # outputs: depth, tri_id and 16 G-buffer channels, 4 bytes each
-    bd = bound(*raster_work(binned, W, H, 4 * (2 + raster.GBUF_OUT)))
+    work = raster_work(binned, W, H, 4 * (2 + raster.GBUF_OUT), RASTER_FLOPS,
+                       raster.CENTER)
+    bd = raster_bound(work)
     say(f"[K1] Sponza {W}x{H}: {int(binned.demand)} pairs, "
         f"{binned.pairs.shape[0] // raster.GROUP} groups; tri_id and depth "
         f"bitwise equal, gbuf bitwise {bitwise_equal(g, g2)} "
-        f"(max |diff| {gerr}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        f"(max |diff| {gerr}); kernel {t_k:.4f} ms (padded stream, PERF.md: "
+        f"{PADDED_STREAM_MS['raster_gbuf']} ms), plain {t_p:.4f} ms, "
+        f"{bound_text(bd, work, t_k)}")
+    say(f"[K1] Sponza {W}x{H}: {reject_text(binned, raster.CENTER)}")
     k1 = {"max_abs_err": max(gerr, float((d - d2).abs().max())),
           "ms": t_k, "plain_ms": t_p, **bd, "library_ms": None}
     return k1, phase_raster_msaa(dev, binned)
@@ -358,11 +429,14 @@ def phase_raster_msaa(dev, binned) -> dict:
     t_p = time_ms(lambda: raster.rasterize_gbuf_plain(binned, W, H, msaa=True),
                   3, warmup=1)
     # outputs: depth, tri_id, 16 G-buffer channels and 4 coverage planes
-    bd = bound(*raster_work(binned, W, H, 4 * (2 + raster.GBUF_OUT + 4),
-                            RASTER_FLOPS_MSAA))
-    say(f"[K1-MSAA] Sponza {W}x{H}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
-        f"{RASTER_FLOPS_MSAA} operations per record per pixel)")
+    work = raster_work(binned, W, H, 4 * (2 + raster.GBUF_OUT + 4),
+                       RASTER_FLOPS_MSAA, raster.COVERAGE)
+    bd = raster_bound(work)
+    say(f"[K1-MSAA] Sponza {W}x{H}: kernel {t_k:.4f} ms (padded stream, "
+        f"PERF.md: {PADDED_STREAM_MS['raster_gbuf_msaa']} ms), plain {t_p:.4f} "
+        f"ms, {bound_text(bd, work, t_k)} ({RASTER_FLOPS_MSAA} operations "
+        f"per record per pixel)")
+    say(f"[K1-MSAA] Sponza {W}x{H}: {reject_text(binned, raster.COVERAGE)}")
     return {"max_abs_err": gerr, "ms": t_k, "plain_ms": t_p, **bd,
             "library_ms": None}
 
@@ -497,14 +571,61 @@ def phase_raster_bounded(dev, sponza, renderer, st, rt) -> tuple:
         # outputs: depth, tri_id, 16 G-buffer channels (and 4 coverage
         # planes); the window's two planes read once
         out_px = 4 * (2 + raster.GBUF_OUT + (4 if msaa else 0)) + 8
-        bd = bound(*raster_work(tb, W, H, out_px, flops))
+        mode = raster.COVERAGE if msaa else raster.CENTER
+        work = raster_work(tb, W, H, out_px, flops, mode)
+        bd = raster_bound(work)
         name = raster.gbuf_kernel_name(msaa, True)
         say(f"[K1-bounded] {name}, translucent Sponza {W}x{H} layer 1: kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}, {flops} operations per record per pixel)")
+            f"{t_k:.4f} ms (padded stream, PERF.md: {PADDED_STREAM_MS[name]} ms), "
+            f"plain {t_p:.4f} ms, {bound_text(bd, work, t_k)} ({flops} "
+            f"operations per record per pixel)")
+        say(f"[K1-bounded] {name}, translucent Sponza {W}x{H} layer 1: "
+            f"{reject_text(tb, mode)}")
         timed[name] = {"max_abs_err": errs[msaa], "ms": t_k, "plain_ms": t_p,
                        **bd, "library_ms": None}
     return timed["raster_gbuf_bounded"], timed["raster_gbuf_msaa_bounded"]
+
+
+def phase_reject_probe(dev) -> None:
+    """Every K1 variant against its plain version on
+    ops/raster_probes.reject_probe (records on the reject test's margin,
+    neighbour-bin records reaching through the edge bias, killed,
+    near-plane and degenerate records; the bounded variants with the
+    probe's seeded window): depth, tri_id, gbuf (and coverage) bitwise."""
+    from vqengine_tpu_torch.ops import raster, raster_probes
+    pb, zb, info = raster_probes.reject_probe(device=dev)
+    w, h = raster_probes.REJECT_W, raster_probes.REJECT_H
+    tile = ((torch.arange(h, device=dev)[:, None] // raster.TILE_H)
+            * raster_probes.REJECT_TILES_X
+            + torch.arange(w, device=dev)[None, :] // raster.TILE_W)
+    for msaa in (False, True):
+        for bounded in (False, True):
+            name = raster.gbuf_kernel_name(msaa, bounded)
+            zbound = zb if bounded else None
+            out = raster.rasterize_gbuf(pb, w, h, msaa=msaa, zbound=zbound)
+            plain = raster.rasterize_gbuf_plain(pb, w, h, msaa=msaa,
+                                                zbound=zbound)
+            torch.cuda.synchronize()
+            for label, a, b in zip(("depth", "tri_id", "gbuf", "coverage"),
+                                   out, plain):
+                if not bitwise_equal(a, b):
+                    fail(f"{name} reject_probe: {label} differs on "
+                         f"{int((a != b).sum())} values")
+            tri = out[1].cpu()
+            margin = sum(int(tri[y, x]) == row
+                         for row, _, _, (x, y) in info["margin"]
+                         if x < w and y < h)
+            reach = sum(int(((out[1] == row) & (tile == t)).sum())
+                        for row, _, t in info["reach"])
+            say(f"[reject] {name} on ops/raster_probes.reject_probe ({w}x{h}; "
+                f"{len(info['margin'])} margin, {len(info['reach'])} reach, "
+                f"{info['killed']} killed, {info['near_plane']} near-plane, "
+                f"{info['degenerate']} degenerate records): bitwise equal; "
+                f"margin corners won by their record {margin}, pixels won "
+                f"through the edge bias in a neighbour tile {reach}")
+            if not (margin and (bounded or reach)):
+                fail(f"{name} reject_probe reached nothing: {margin} margin "
+                     f"corners, {reach} reach pixels")
 
 
 def caster_views(consts) -> list:
@@ -530,7 +651,8 @@ def phase_vis(dev, sponza, renderer) -> dict:
     views = caster_views(consts)
     if len(views) != 8:
         fail(f"Sponza has {len(views)} caster views, expected 8")
-    ms = err = ops = nbytes = 0.0
+    ms = err = 0.0
+    total = {}
     plain_ms = plain_view = None
     for name, vp, size in views:
         binned = shadow.bin_shadow_view(scene.positions, scene.item_of_vertex,
@@ -548,20 +670,19 @@ def phase_vis(dev, sponza, renderer) -> dict:
             plain_ms = time_ms(lambda: raster.rasterize_plain(binned, size, size),
                                1, warmup=1)
             plain_view = name
-        o, b = raster_work(binned, size, size, 8)     # depth + tri_id
-        ops += o
-        nbytes += b
+        # depth + tri_id
+        work = raster_work(binned, size, size, 8, RASTER_FLOPS, raster.CENTER)
+        total = add_work(total, work)
         ms += t_k
-        bd = bound(o, b)
         say(f"[K2] {name} {size}^2: pair demand {int(binned.demand)}, capacity "
             f"{binned.pair_cap}, overflow {binned.overflow.tolist()}; "
             f"covered {float((i >= 0).float().mean()):.4f}; depth and tri_id "
-            f"bitwise equal; kernel {t_k:.4f} ms, bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-    bd = bound(ops, nbytes)
-    say(f"[K2] per frame (8 views): kernel {ms:.4f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); plain {plain_ms:.4f} ms "
-        f"on the {plain_view} view alone")
+            f"bitwise equal; kernel {t_k:.4f} ms, "
+            f"{bound_text(raster_bound(work), work, t_k)}")
+    bd = raster_bound(total)
+    say(f"[K2] per frame (8 views): kernel {ms:.4f} ms, "
+        f"{bound_text(bd, total, ms)}; plain {plain_ms:.4f} ms on the "
+        f"{plain_view} view alone")
     k2 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
           "library_ms": None}
     return k2, phase_vis_msaa4(renderer, consts, views)
@@ -572,7 +693,8 @@ def phase_vis_msaa4(renderer, consts, views) -> dict:
     and the first 1024^2 spot view; its times and bound are their sums."""
     from vqengine_tpu_torch.ops import raster, shadow
     scene = renderer.scene
-    ms = plain_ms = err = ops = nbytes = 0.0
+    ms = plain_ms = err = 0.0
+    total = {}
     for name, vp, size in [v for v in views if v[0] in ("dir", "spot0")]:
         binned = shadow.bin_shadow_view(scene.positions, scene.item_of_vertex,
                                         consts.world, vp, scene.indices, size)
@@ -587,21 +709,20 @@ def phase_vis_msaa4(renderer, consts, views) -> dict:
         t_p = time_ms(lambda: raster.rasterize_plain(binned, size, size, msaa=True),
                       1, warmup=1)
         # depth and tri_id per sample
-        o, b = raster_work(binned, size, size, 4 * 8, RASTER_FLOPS_MSAA4)
-        ops += o
-        nbytes += b
+        work = raster_work(binned, size, size, 4 * 8, RASTER_FLOPS_MSAA4,
+                           raster.SAMPLES4)
+        total = add_work(total, work)
         ms += t_k
         plain_ms += t_p
-        bd = bound(o, b)
         split = float((i != i[:1]).any(0).float().mean())
         say(f"[K2-msaa4] {name} {size}^2: depth and tri_id stacks bitwise "
             f"equal; texels whose samples differ {split:.4f}; kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}, {RASTER_FLOPS_MSAA4} operations per record "
-            f"per pixel)")
-    bd = bound(ops, nbytes)
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"{bound_text(raster_bound(work), work, t_k)} "
+            f"({RASTER_FLOPS_MSAA4} operations per record per pixel)")
+    bd = raster_bound(total)
     say(f"[K2-msaa4] both views: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        f"{bound_text(bd, total, ms)}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
             "library_ms": None}
 
@@ -1105,6 +1226,7 @@ def main() -> None:
     k1, k1_msaa = phase_raster(dev, sponza, renderer)
     k1_bounded, k1_msaa_bounded = phase_raster_bounded(dev, sponza, renderer,
                                                        st, rt)
+    phase_reject_probe(dev)
     k2, k2_msaa4 = phase_vis(dev, sponza, renderer)
     phase_goldens(dev)
     phase_shadow_card_vs_cpu(dev)

@@ -343,3 +343,30 @@ def test_transparent_frame_on_card_matches_cpu(cuda):
     out, ref = outs
     assert torch.equal(out["tri_id"].cpu(), ref["tri_id"])
     assert float((out["ldr"].cpu() - ref["ldr"]).abs().max()) <= 3e-4
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize("msaa", [False, True])
+def test_raster_gbuf_kernel_reject_probe(cuda, msaa, bounded):
+    """Every K1 variant against its plain version on
+    ops/raster_probes.reject_probe (records on the reject test's margin,
+    neighbour-bin records reaching a tile through the edge bias, killed,
+    near-plane and degenerate records; the bounded variants with the
+    probe's window): bitwise, and the reach records win pixels of the tile
+    they are not listed in."""
+    pb, zbound, info = raster_probes.reject_probe(device=cuda)
+    w, h = raster_probes.REJECT_W, raster_probes.REJECT_H
+    kw = dict(msaa=msaa, zbound=zbound if bounded else None)
+    name = raster.gbuf_kernel_name(msaa, bounded)
+    before = _backend.launches[name]
+    out = raster.rasterize_gbuf(pb, w, h, **kw)
+    assert _backend.launches[name] == before + 1
+    plain = raster.rasterize_gbuf_plain(pb, w, h, **kw)
+    for a, b in zip(out, plain):
+        assert bitwise(a, b)
+    tile = ((torch.arange(h, device=cuda)[:, None] // raster.TILE_H)
+            * raster_probes.REJECT_TILES_X
+            + torch.arange(w, device=cuda)[None, :] // raster.TILE_W)
+    reach = sum(int(((out[1] == row) & (tile == t)).sum())
+                for row, _, t in info["reach"])
+    assert bounded or reach > 0

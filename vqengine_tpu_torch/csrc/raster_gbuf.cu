@@ -11,31 +11,42 @@
 // edge-padded; here each thread reads its 8 pixels' window once per tile,
 // row and column clamped to the frame, which is the same value).
 //
-// What it computes. One CTA per 16x128-pixel tile streams groups of 128
-// records (32 f32 each, pair-major rows of the sorted pair array) and
-// keeps each pixel's winner (raster_common.cuh: stream order, tie-break,
-// the split plane arithmetic and, for MSAA, the per-sample thresholds,
-// the depth key z / z + 1 / 4 and the sticky coverage bits). After the
-// stream the MSAA variant turns the key back into a depth (key < 1 stays,
-// key < 3 loses the + 1, the clear value 4 becomes 1). Each pixel then
-// reads its winner's rows 0-29 from global memory and resolves, at the
-// pixel center, perspective barycentrics, the bf16-packed normal/tangent
-// pairs and uv, and the material, object and item ids, writing depth,
-// tri_id and 16 G-buffer channels straight into [H, W] and [16, H, W]
-// (ragged edge masked, background zeroed), and with MSAA the coverage
-// [4, H, W] in {0, 1}. The resolve rounds two multiply-adds as one
-// (fma_f64), as the reference does on the CPU, where its compiler
-// contracts them.
+// What it computes. One CTA per 16x128-pixel tile walks the reference's
+// stream of records (32 f32 each, pair-major rows of the sorted pair
+// array: global tier, tile-row tier, tile tier, each rounded out to whole
+// groups of 128) and keeps each pixel's winner (raster_common.cuh: stream
+// order, tie-break, the split plane arithmetic and, for MSAA, the
+// per-sample thresholds, the depth key z / z + 1 / 4 and the sticky
+// coverage bits). After the stream the MSAA variant turns the key back
+// into a depth (key < 1 stays, key < 3 loses the + 1, the clear value 4
+// becomes 1). Each pixel then reads its winner's rows 0-29 from global
+// memory and resolves, at the pixel center, perspective barycentrics, the
+// bf16-packed normal/tangent pairs and uv, and the material, object and
+// item ids, writing depth, tri_id and 16 G-buffer channels straight into
+// [H, W] and [16, H, W] (ragged edge masked, background zeroed), and with
+// MSAA the coverage [4, H, W] in {0, 1}. The resolve rounds two
+// multiply-adds as one (fma_f64), as the reference does on the CPU, where
+// its compiler contracts them.
 //
-// Bound. Arithmetic: 4 planes x 9 flops per record per pixel (36), over
-// every record of every group a tile streams (most of them do not cover
-// the pixel); the MSAA variant adds 12 threshold compares and the z + 1
-// (52 with the key's own thresholds); the bounded variants add the two
-// window compares (38 and 54). Memory traffic is small (a group's 12
-// plane rows once per tile, the winner's 30 rows once per pixel, the
-// window's 8 bytes per pixel, the outputs once).
-// Design: the shared tile stream, then the resolve in registers. No
-// tensor cores, no TMA: simple first.
+// Bound. Arithmetic: 4 planes x 9 flops per evaluated record per pixel
+// (36); the MSAA variant adds 12 threshold compares and the z + 1 (52
+// with the key's own thresholds); the bounded variants add the two window
+// compares (38 and 54). What the inputs need is the (record, pixel block)
+// pairs in which the record covers something (raster.covered_block_pairs);
+// the padded stream evaluates every record of every streamed group against
+// the whole tile, and on Sponza about 97% of those records belong to
+// neighbouring bins that the group rounding sweeps in. Memory traffic is
+// small (12 plane floats per streamed record, the winner's 30 rows once
+// per pixel, the window's 8 bytes per pixel, the outputs once).
+//
+// Design: the reject stream of raster_common.cuh (stream_tile_reject): a
+// record is evaluated only by the warps whose 32x8-pixel footprint its
+// planes can reach, after a tile-level test that compacts the survivors;
+// the skipped pairs provably change nothing, so the outputs stay bitwise
+// those of the plain version, which evaluates every record everywhere. The
+// ring, the survivors' constants and ids take 61 KB (CENTER) or 76 KB
+// (COVERAGE) of dynamic shared memory per CTA. Then the resolve in
+// registers. No tensor cores (the header says why).
 #include "raster_common.cuh"
 
 namespace {
@@ -46,8 +57,12 @@ constexpr int REC = 32;          // floats per record
 constexpr int GBUF_OUT = 16;
 constexpr float NRM_PACK_BIAS = 3.0f;
 
+// At most 128 registers, so that two CTAs fit an SM: without the bound
+// the MSAA variants took 153 and 173 registers, one CTA per SM, and ran
+// 10-12% slower on an H100 (tools/time_k1_torch.py, both builds timed
+// on one card); the center-sampled ones fit (113 and 128, no spills).
 template <int MODE, bool BOUNDED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 raster_gbuf_kernel(const float* __restrict__ pairs,
                    const float* __restrict__ gpairs,
                    const int* __restrict__ starts,
@@ -58,7 +73,7 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
                    const float* __restrict__ zhi_img,
                    float* __restrict__ depth_out, int* __restrict__ id_out,
                    float* __restrict__ gbuf_out, float* __restrict__ cov_out) {
-  __shared__ float consts[GROUP][ModeInfo<MODE>::NC];
+  extern __shared__ float4 smem[];
   const int tx = blockIdx.x, ty = blockIdx.y;
   const int lx = threadIdx.x % TILE_W;
   const int row0 = (threadIdx.x / TILE_W) * ROWS;
@@ -80,17 +95,18 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
       zhi[i] = zhi_img[o];
     }
   }
-  stream_tile<REC, MODE, BOUNDED>(pairs, gpairs, starts, rstarts, gmeta, tx,
-                                  ty, tiles_x, consts, lx, row0, depth, win,
-                                  &cov, zlo, zhi);
+  stream_tile_reject<REC, MODE, BOUNDED>(
+      pairs, gpairs, starts, rstarts, gmeta, tx, ty, tiles_x,
+      reinterpret_cast<float*>(smem), lx, row0, depth, win, &cov, zlo, zhi);
 
   const int x = tx * TILE_W + lx;
   if (x >= width) return;
   const long long plane = (long long)width * height;
   const float px = __fadd_rn(__fadd_rn((float)lx, x0), 0.5f);
+#pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int y = ty * TILE_H + row0 + i;
-    if (y >= height) break;
+    if (y >= height) continue;
     const long long o = (long long)y * width + x;
     float d = depth[i];
     if constexpr (MODE == COVERAGE) {
@@ -151,7 +167,12 @@ int launch(const void* pairs, const void* gpairs, const void* starts,
            int width, int height, const void* zlo, const void* zhi,
            void* depth, void* tri_id, void* gbuf, void* cov, void* stream) {
   if (tiles_x > 0 && tiles_y > 0) {
-    raster_gbuf_kernel<MODE, BOUNDED><<<dim3(tiles_x, tiles_y), THREADS, 0,
+    constexpr int bytes = RejectSmem<MODE>::BYTES;
+    const cudaError_t e = cudaFuncSetAttribute(
+        raster_gbuf_kernel<MODE, BOUNDED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    raster_gbuf_kernel<MODE, BOUNDED><<<dim3(tiles_x, tiles_y), THREADS, bytes,
                                         (cudaStream_t)stream>>>(
         (const float*)pairs, (const float*)gpairs, (const int*)starts,
         (const int*)rstarts, (const int*)gmeta, tiles_x, width, height,
@@ -204,4 +225,10 @@ extern "C" int vq_raster_gbuf_msaa_bounded(
   return launch<COVERAGE, true>(pairs, gpairs, starts, rstarts, gmeta,
                                 tiles_x, tiles_y, width, height, zlo, zhi,
                                 depth, tri_id, gbuf, cov, stream);
+}
+
+// Dynamic shared memory per CTA of the center-sampled (msaa 0) or MSAA
+// (msaa 1) variants, bounded or not: ptxas reports static memory only.
+extern "C" int vq_raster_gbuf_smem_bytes(int msaa) {
+  return msaa ? RejectSmem<COVERAGE>::BYTES : RejectSmem<CENTER>::BYTES;
 }

@@ -27,8 +27,9 @@
 // cover the pixel, against the card's fp32 rate outside the tensor cores.
 // Memory traffic is small: a group's 12 plane rows once per tile, one id
 // per pixel and sample, 8 bytes of output per pixel and sample.
-// Design: K1's stream loop without the resolve. No tensor cores, no TMA
-// or cp.async double-buffering: simple first.
+// Design: the padded stream of raster_common.cuh (stream_tile: every
+// streamed record against every pixel) without a resolve; K1 streams with
+// the reject stream there instead. No tensor cores (the header says why).
 #include "raster_common.cuh"
 
 namespace {

@@ -115,8 +115,9 @@ def build() -> BuildInfo:
         o.unlink()
     text = "\n".join(out + err for (out, err), _ in outs)
     ptxas = [ln.strip() for ln in text.splitlines()
-             if "ptxas info" in ln and ("registers" in ln or "Compiling" in ln
-                                         or "bytes smem" in ln)]
+             if ("ptxas info" in ln and ("registers" in ln or "Compiling" in ln
+                                          or "bytes smem" in ln))
+             or "bytes spill" in ln]
     return BuildInfo(lib, seconds, ptxas)
 
 
@@ -149,6 +150,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.vq_raster_gbuf_smem_bytes.argtypes = [ctypes.c_int]
+        lib.vq_raster_gbuf_smem_bytes.restype = ctypes.c_int
         lib.vq_error_string.argtypes = [ctypes.c_int]
         lib.vq_error_string.restype = ctypes.c_char_p
         _lib = lib

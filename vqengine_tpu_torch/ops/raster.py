@@ -510,6 +510,28 @@ def _group_sequences(binned: BinnedTriangles) -> tuple[torch.Tensor, int]:
     return torch.where(s < total, seq, torch.full_like(seq, -1)), s_max
 
 
+def plane_consts(rec: torch.Tensor, x0: torch.Tensor,
+                 y0: torch.Tensor) -> list:
+    """Per plane of records rec [..., >=12] at tile origins x0/y0
+    (broadcastable against rec[..., 0]), the tile-local constants of the
+    split evaluation before the split: (ex/2, ey/2, fma(ey, y0, fma(ex, x0,
+    ew)) [+ the 2^-15 edge bias for the three edges]), f32."""
+    out = []
+    for p in range(4):
+        ex, ey, ew = rec[..., 3 * p], rec[..., 3 * p + 1], rec[..., 3 * p + 2]
+        ex2 = ex * 0.5
+        ey2 = ey * 0.5
+        # XLA contracts the reference's ew + ex*x0 + ey*y0 into two
+        # fused multiply-adds on the CPU (tile origins past 128 make
+        # the products inexact)
+        ew2 = _fma(ey, y0, _fma(ex, x0, ew))
+        if p < 3:
+            ew2 = ew2 + ((ex2.abs() * (2.0 * TILE_W) + ey2.abs() * (2.0 * TILE_H)
+                          + ew2.abs()) * EDGE_BIAS)
+        out.append((ex2, ey2, ew2))
+    return out
+
+
 def _plane_eval_split(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
                       xs: torch.Tensor, ys: torch.Tensor) -> list:
     """The reference's split-eval plane evaluation (_plane_eval_dots):
@@ -522,20 +544,8 @@ def _plane_eval_split(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     product against X and Y is exact in f32, so only this order of
     additions decides the rounding."""
     out = []
-    x0 = x0[:, None]
-    y0 = y0[:, None]
     c, g = rec.shape[:2]
-    for p in range(4):
-        ex, ey, ew = rec[..., 3 * p], rec[..., 3 * p + 1], rec[..., 3 * p + 2]
-        ex2 = ex * 0.5
-        ey2 = ey * 0.5
-        # XLA contracts the reference's ew + ex*x0 + ey*y0 into two
-        # fused multiply-adds on the CPU (tile origins past 128 make
-        # the products inexact)
-        ew2 = _fma(ey, y0, _fma(ex, x0, ew))
-        if p < 3:
-            ew2 = ew2 + ((ex2.abs() * (2.0 * TILE_W) + ey2.abs() * (2.0 * TILE_H)
-                          + ew2.abs()) * EDGE_BIAS)
+    for ex2, ey2, ew2 in plane_consts(rec, x0[:, None], y0[:, None]):
         parts = []
         for v in (ex2, ey2, ew2):
             h = v.to(torch.bfloat16).to(torch.float32)
@@ -885,6 +895,160 @@ def rasterize_gbuf(binned: BinnedTriangles, width: int, height: int,
     if binned.pairs.is_cuda:
         return _rasterize_gbuf_cuda(binned, width, height, msaa, zbound)
     raise ValueError(f"rasterize_gbuf: unsupported device {binned.pairs.device}")
+
+
+# ===========================================================================
+# 4b. where a record can reach: K1's reject test, and the work the raster
+#     kernels need
+# ===========================================================================
+
+FOOT_W, FOOT_H = 32, 8      # a K1 warp's pixels (raster_common.cuh)
+BLOCK_W, BLOCK_H = 8, 4     # covered_block_pairs' pixel block
+REJECT_REL = 2.0 ** -15     # the reject margin per unit of sum |terms|
+REJECT_ABS = 2.0 ** -100    # its floor
+REJECT_THR = 1.0 + 2.0 ** -20
+
+
+def reject_block(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                 cols: tuple, rows: tuple, mode: str) -> torch.Tensor:
+    """K1's reject test (raster_common.cuh reject_record, whose header
+    derives the margin): True where the record rec [..., >=12] of the
+    tile at x0/y0 (broadcastable against rec[..., 0]) can change nothing
+    on the tile-local pixel columns cols = (first, last) and rows = (first,
+    last) in the sample mode's own test (CENTER or COVERAGE), any depth
+    window ignored. Each plane's real value over the block is largest and
+    smallest at a corner; reject where an edge's maximum plus the margin
+    lies below the smallest value the mode accepts (0, or for COVERAGE a
+    lower bound of every sample threshold), or the depth plane's range plus
+    the margin misses [0, inf) (CENTER) or [0, 1] (COVERAGE). In f64,
+    operation for operation as the kernel evaluates it."""
+    if mode not in (CENTER, COVERAGE):
+        raise ValueError(f"reject_block: no reject test for mode {mode}")
+    x_lo, x_hi = 2.0 * cols[0] + 1.0, 2.0 * cols[1] + 1.0
+    y_lo, y_hi = 2.0 * rows[0] + 1.0, 2.0 * rows[1] + 1.0
+    rej = None
+    for p, planes in enumerate(plane_consts(rec, x0, y0)):
+        a, b, c = (v.double() for v in planes)
+        aa, ab = a.abs(), b.abs()
+        vmax = (a * torch.where(a >= 0, x_hi, x_lo)
+                + b * torch.where(b >= 0, y_hi, y_lo)) + c
+        m = ((aa * x_hi + ab * y_hi) + c.abs()) * REJECT_REL + REJECT_ABS
+        top = vmax + m
+        if p < 3:
+            thr = (0.0 if mode == CENTER
+                   else -(((aa + ab) * 0.75) * REJECT_THR))
+            r = top < thr
+        else:
+            r = top < 0.0
+            if mode == COVERAGE:
+                vmin = (a * torch.where(a >= 0, x_lo, x_hi)
+                        + b * torch.where(b >= 0, y_lo, y_hi)) + c
+                r = r | ((vmin - m) > 1.0)
+        rej = r if rej is None else rej | r
+    return rej
+
+
+def record_covers(mode: str, rec: torch.Tensor, b0, b1, b2, z) -> torch.Tensor:
+    """Whether each record changes anything at each pixel in the sample
+    mode's own test, any depth window ignored: rec [C, G, 12], planes
+    [C, G, NPX] (_plane_eval_split) -> [C, G, NPX] bool. CENTER: b0, b1,
+    b2, z >= 0. COVERAGE: 0 <= z <= 1 and the center or some sample
+    covered, under the coverage bits' or the key's rounding of its
+    thresholds. SAMPLES4: some sample covered."""
+    planes = (b0, b1, b2, z)
+    if mode == CENTER:
+        return torch.minimum(torch.minimum(b0, b1), torch.minimum(b2, z)) >= 0
+    hit = torch.zeros_like(z, dtype=torch.bool)
+    for s, (dx, dy) in enumerate(MSAA4_OFFSETS):
+        if mode == COVERAGE:
+            for fused in (MSAA_COVERAGE_FUSED[s], MSAA_KEY_FUSED[s]):
+                c = torch.ones_like(hit)
+                for i in range(3):
+                    t = msaa_threshold(rec[..., 3 * i], rec[..., 3 * i + 1], s,
+                                       fused[i])
+                    c = c & (planes[i] >= t[..., None])
+                hit = hit | c
+        else:
+            c = torch.ones_like(hit)
+            for i in range(4):
+                off = sample_offset(rec[..., 3 * i], rec[..., 3 * i + 1], dx, dy)
+                c = c & ((planes[i] + off[..., None]) >= 0)
+            hit = hit | c
+    if mode == COVERAGE:
+        hit = (hit | ((b0 >= 0) & (b1 >= 0) & (b2 >= 0))) & (z >= 0) & (z <= 1)
+    return hit
+
+
+def streamed_groups(binned: BinnedTriangles):
+    """The raster kernels' tile streams: per chunk of tiles and step of
+    _group_sequences -> (x0 [C], y0 [C], rec [C, GROUP, 12] the plane rows
+    of the group each tile streams at that step, live [C]: whether it
+    streams one)."""
+    dev = binned.pairs.device
+    nt = binned.tiles_x * binned.tiles_y
+    groups = torch.cat([binned.gpairs[:, :12], binned.pairs[:, :12]]
+                       ).view(-1, GROUP, 12)
+    seq, s_max = _group_sequences(binned)
+    chunk = 64 if dev.type == "cuda" else 16
+    for c0 in range(0, nt, chunk):
+        tiles = torch.arange(c0, min(c0 + chunk, nt), device=dev)
+        x0 = ((tiles % binned.tiles_x) * TILE_W).to(torch.float32)
+        y0 = ((tiles // binned.tiles_x) * TILE_H).to(torch.float32)
+        for s in range(s_max):
+            g = seq[tiles, s]
+            yield x0, y0, groups[g.clamp(min=0)], g >= 0
+
+
+def covered_block_pairs(binned: BinnedTriangles, width: int, height: int,
+                        mode: str) -> int:
+    """The (streamed record, BLOCK_W x BLOCK_H pixel block) pairs of a
+    raster call in which the record covers at least one pixel centre or
+    sample of the block inside the frame (record_covers, the plain split
+    evaluation, any window ignored): the evaluation these inputs need, and
+    the raster kernels' bound. A record streamed twice by a tile counts
+    twice, as it is evaluated twice."""
+    dev = binned.pairs.device
+    lin = torch.arange(NPX, device=dev)
+    xs = 2.0 * torch.arange(TILE_W, device=dev, dtype=torch.float32) + 1.0
+    ys = 2.0 * torch.arange(TILE_H, device=dev, dtype=torch.float32) + 1.0
+    total = 0
+    for x0, y0, rec, live in streamed_groups(binned):
+        cov = record_covers(mode, rec, *_plane_eval_split(rec, x0, y0, xs, ys))
+        inside = (((x0[:, None] + (lin % TILE_W)) < width)
+                  & ((y0[:, None] + (lin // TILE_W)) < height) & live[:, None])
+        cov = (cov & inside[:, None, :]).view(
+            *cov.shape[:2], TILE_H // BLOCK_H, BLOCK_H, TILE_W // BLOCK_W,
+            BLOCK_W)
+        total += int(cov.any(dim=5).any(dim=3).sum())
+    return total
+
+
+def footprints() -> list:
+    """K1's warp footprints: ((first, last) column, (first, last) row) of
+    warp w = 0..7, as raster_common.cuh assigns its threads' pixels."""
+    return [((c, c + FOOT_W - 1), (r, r + FOOT_H - 1))
+            for r in range(0, TILE_H, FOOT_H) for c in range(0, TILE_W, FOOT_W)]
+
+
+def reject_stream_counts(binned: BinnedTriangles, mode: str) -> dict:
+    """What K1's reject stream evaluates on these inputs, by the plain
+    mirror of its test (the kernel counts nothing): "streamed" records
+    (every record of every group the tiles stream), "tile_survivors"
+    (those the tile-level test keeps, (a)) and "footprint_pairs" (the
+    (survivor, warp footprint) pairs the per-warp test keeps, (b); each
+    costs the warp 256 pixel evaluations)."""
+    streamed = survivors = pairs = 0
+    whole = ((0, TILE_W - 1), (0, TILE_H - 1))
+    for x0, y0, rec, live in streamed_groups(binned):
+        x0, y0 = x0[:, None], y0[:, None]
+        kept = live[:, None] & ~reject_block(rec, x0, y0, *whole, mode)
+        streamed += int(live.sum()) * GROUP
+        survivors += int(kept.sum())
+        for cols, rows in footprints():
+            pairs += int((kept & ~reject_block(rec, x0, y0, cols, rows, mode)
+                          ).sum())
+    return {"streamed": streamed, "tile_survivors": survivors,
+            "footprint_pairs": pairs}
 
 
 # ===========================================================================

@@ -217,6 +217,24 @@ def msaa_probe(seed: int = 0, device: torch.device | str = "cpu"):
 # the depth-bounded variants (K1-bounded, both sample modes)
 # ---------------------------------------------------------------------------
 
+def _attr_record(rng, edges, plane) -> np.ndarray:
+    """A K1 record: three edges (a, b, c), a depth plane and random
+    attributes (packed normal/tangent pairs, uv, material/item and object
+    ids)."""
+    rec = np.zeros(raster.GBUF_ROWS, np.float32)
+    rec[0:9] = np.asarray(edges, np.float32).reshape(-1)
+    rec[9:12] = plane
+    nrm = torch.from_numpy(rng.uniform(-1, 1, (3, 3)).astype(np.float32))
+    tan = torch.from_numpy(rng.uniform(-1, 1, (3, 3)).astype(np.float32))
+    attrs = torch.cat([raster.pack_bf16_pair(nrm + raster.NRM_PACK_BIAS, tan),
+                       torch.from_numpy(rng.uniform(0, 1, (3, 2))
+                                        .astype(np.float32))], dim=1)
+    rec[13:28] = attrs.reshape(-1).numpy()
+    rec[28] = float(rng.integers(0, 4) * 65536 + rng.integers(0, 64))
+    rec[29] = float(rng.integers(0, 64))
+    return rec
+
+
 # a ragged frame of 2 x 2 tiles: the window's edge padding is read
 BOUNDED_TILES = 2
 BOUNDED_W = BOUNDED_TILES * raster.TILE_W - 16
@@ -266,18 +284,7 @@ def bounded_probe(seed: int = 0, device: torch.device | str = "cpu"):
     killed = raster.killed_record(rows, torch.device("cpu")).numpy()
 
     def record(edges, plane) -> np.ndarray:
-        rec = np.zeros(rows, np.float32)
-        rec[0:9] = np.asarray(edges, np.float32).reshape(-1)
-        rec[9:12] = plane
-        nrm = torch.from_numpy(rng.uniform(-1, 1, (3, 3)).astype(np.float32))
-        tan = torch.from_numpy(rng.uniform(-1, 1, (3, 3)).astype(np.float32))
-        attrs = torch.cat([raster.pack_bf16_pair(nrm + raster.NRM_PACK_BIAS, tan),
-                           torch.from_numpy(rng.uniform(0, 1, (3, 2))
-                                            .astype(np.float32))], dim=1)
-        rec[13:28] = attrs.reshape(-1).numpy()
-        rec[28] = float(rng.integers(0, 4) * 65536 + rng.integers(0, 64))
-        rec[29] = float(rng.integers(0, 64))
-        return rec
+        return _attr_record(rng, edges, plane)
 
     cover = [(0.0, 0.0, 1.0)] * 3
     recs = [record(cover, (1.5e-3, 2e-3, 0.3)), record(cover, (0, 0, 0.5)),
@@ -335,3 +342,273 @@ def bounded_probe(seed: int = 0, device: torch.device | str = "cpu"):
         f: (getattr(binned, f).to(dev) if isinstance(getattr(binned, f), torch.Tensor)
             else getattr(binned, f)) for f in binned.__dataclass_fields__})
     return binned, (zlo.to(dev), zhi.to(dev)), cls.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# K1's reject stream (all four variants): records on the reject margin
+# ---------------------------------------------------------------------------
+
+REJECT_TILES_X, REJECT_TILES_Y = 4, 2
+REJECT_W = REJECT_TILES_X * raster.TILE_W - 12      # ragged, like a frame
+REJECT_H = REJECT_TILES_Y * raster.TILE_H - 2
+# the margin targets: (plane, value the mode's own test compares with)
+# - "edge0": edge 0 at its maximum over a warp footprint near 0 (CENTER)
+# - "thr": near the smallest of edge 0's MSAA thresholds (COVERAGE)
+# - "z0": the depth plane's maximum near 0 (both modes)
+# - "z1": its minimum near 1 (COVERAGE keeps z <= 1)
+MARGIN_TARGETS = ("edge0", "thr", "z0", "z1")
+MARGIN_PER_CASE = 3     # records per (target, side)
+REACH_BIAS_SHARE = 0.25  # how far past the pixel centre a reach edge lies
+
+
+def _plane_value(rec: torch.Tensor, p: int, x0: float, y0: float, lx: int,
+                 ly: int) -> torch.Tensor:
+    """Plane p of records rec [N, 12] at pixel (lx, ly) of the tile at
+    (x0, y0), as the kernels evaluate it (split, edge bias) -> [N]."""
+    return raster._plane_eval_split(
+        rec[None], torch.tensor([x0]), torch.tensor([y0]),
+        torch.tensor([2.0 * lx + 1.0]), torch.tensor([2.0 * ly + 1.0]))[p][0, :, 0]
+
+
+def _straddle(a: float, b: float, p: int, x0: float, y0: float, lx: int,
+              ly: int, theta: float, le: bool) -> dict:
+    """The constant c of plane p = (a, b, c) whose value at pixel (lx, ly)
+    lies nearest to theta on each side: {True: the nearest value the
+    plane's test accepts (>= theta, or <= theta where le), False: the
+    nearest it refuses} -> c per side."""
+    gx, gy = x0 + lx + 0.5, y0 + ly + 0.5
+    c0 = torch.tensor([theta - (a * gx + b * gy)], dtype=torch.float32)
+
+    def value(c: torch.Tensor) -> torch.Tensor:
+        rec = torch.zeros((c.shape[0], 12))
+        rec[:, 3 * p], rec[:, 3 * p + 1], rec[:, 3 * p + 2] = a, b, c
+        return _plane_value(rec, p, x0, y0, lx, ly)
+
+    for _ in range(2):
+        c0 = c0 + (theta - value(c0))
+    steps = torch.arange(-32, 33, dtype=torch.float32)
+    cands = torch.cat([c0 + steps * _ulp(c0) * 2.0 ** j for j in (0, 3, 6, 9, 12)])
+    v = value(cands)
+    ok = v <= theta if le else v >= theta
+    out = {}
+    for side in (True, False):
+        sel = ok == side
+        if not bool(sel.any()):
+            raise RuntimeError(f"no {side} value of plane {p} near {theta}")
+        gap = (v - theta).abs().double()
+        gap[~sel] = float("inf")
+        out[side] = float(cands[int(gap.argmin())])
+    return out
+
+
+def _triangle_edges(pts) -> list:
+    """Three edges (a, b, c) of the triangle pts [(x, y)] x 3, edge i
+    opposite vertex i, each >= 0 inside."""
+    out = []
+    for i in range(3):
+        (xa, ya), (xb, yb) = pts[(i + 1) % 3], pts[(i + 2) % 3]
+        e = np.array([ya - yb, xb - xa, xa * yb - xb * ya])
+        if e[0] * pts[i][0] + e[1] * pts[i][1] + e[2] < 0:
+            e = -e
+        out.append(tuple(e))
+    return out
+
+
+def reject_probe(seed: int = 0, device: torch.device | str = "cpu"):
+    """Crafted records on and around the margin of K1's reject test ->
+    (BinnedTriangles of REJECT_W x REJECT_H pixels (4 x 2 tiles), (zlo,
+    zhi) [H, W] a seeded depth window for the bounded variants, info).
+
+    - Margin records, each at a random corner of its own warp footprint
+      of tiles 0-5. Their target plane (MARGIN_TARGETS) takes, at the
+      corner pixel, the value nearest its test's bound on one side
+      (accepted or refused: MARGIN_PER_CASE records per target and side);
+      elsewhere in the footprint it lies further outside. A small triangle
+      keeps each record to a few pixels around its corner; the other planes
+      accept there by about a pixel.
+    - Neighbour-bin records: tiles 0-5's segments are packed into the
+      first two groups, so every one of them streams all of them (the
+      group rounding sweeps them in). Four records, each listed in one
+      tile's segment, cover pixel centres of a neighbouring tile (0 -> 1,
+      1 -> 0, 0 -> 4, 4 -> 0) only through the 2^-15 edge bias: their edge
+      lies REACH_BIAS_SHARE of that tile's bias past the pixel centre.
+    - Killed records inside the segments and as the groups' padding.
+    - Tiles 6 and 7 (the third group, streamed by them alone): records of
+      triangles with a vertex at w <= 0 (through setup_triangles and
+      pack_records), a record whose edges are all zero (it covers
+      everything, at z = 0.99), edges scaled by 1e25, 1e-30 and 1e-38, and
+      a NaN and an infinite edge.
+
+    info: "margin" [(row, target, accepted, corner pixel (x, y))], "reach" [(row, home tile,
+    reached tile)], counts "killed", "near_plane", "degenerate". A
+    record's id (row 12) is its row in the pair array."""
+    rng = np.random.default_rng(seed)
+    tw, th = raster.TILE_W, raster.TILE_H
+    nt = REJECT_TILES_X * REJECT_TILES_Y
+    killed = raster.killed_record(raster.GBUF_ROWS, torch.device("cpu")).numpy()
+    segs = [[] for _ in range(nt)]
+    info = {"margin": [], "reach": [], "killed": 0, "near_plane": 0,
+            "degenerate": 0}
+
+    def origin(t: int) -> tuple[float, float]:
+        return float(t % REJECT_TILES_X * tw), float(t // REJECT_TILES_X * th)
+
+    # margin records, one footprint each
+    slots = [(t, f) for t in range(6) for f in range(8)]
+    order = rng.permutation(len(slots))
+    cases = [(g, side) for g in MARGIN_TARGETS for side in (True, False)
+             ] * MARGIN_PER_CASE
+    for (g, side), k in zip(cases, order):
+        t, f = slots[k]
+        x0, y0 = origin(t)
+        (c0, c1), (r0, r1) = raster.footprints()[f]
+        right, down = bool(rng.integers(2)), bool(rng.integers(2))
+        lx, ly = (c1 if right else c0), (r1 if down else r0)
+        q = np.array([x0 + lx + 0.5, y0 + ly + 0.5])
+        sx, sy = (1.0 if right else -1.0), (1.0 if down else -1.0)
+        if g in ("edge0", "thr"):
+            # edge 0 rises towards the corner (its maximum there); the
+            # triangle lies beyond it, its apex 3 pixels outwards
+            a = float(np.float32(sx * rng.uniform(0.3, 2.0)))
+            b = float(np.float32(sy * rng.uniform(0.3, 2.0)))
+            theta = 0.0
+            if g == "thr":
+                ta, tb = torch.tensor([a]), torch.tensor([b])
+                theta = min(float(raster.msaa_threshold(ta, tb, s, fused[i]))
+                            for s in range(4) for i in (0,)
+                            for fused in (raster.MSAA_COVERAGE_FUSED[s],
+                                          raster.MSAA_KEY_FUSED[s]))
+            c = _straddle(a, b, 0, x0, y0, lx, ly, theta, False)[side]
+            n = np.array([a, b]) / np.hypot(a, b)
+            tan = np.array([-n[1], n[0]])
+            apex, bp, bm = q + 3 * n, q - 0.5 * n + 3 * tan, q - 0.5 * n - 3 * tan
+            e = _triangle_edges([apex, bp, bm])
+            edges = [(a, b, c), e[2], e[1]]       # opposite bm, bp
+            plane = (0.0, 0.0, float(rng.uniform(0.2, 0.8)))
+        else:
+            # the depth plane's maximum (z0) or minimum (z1) over the
+            # footprint at the corner; a triangle of radius 3 around it
+            up = g == "z0"
+            a = float(np.float32((sx if up else -sx) * rng.uniform(1e-3, 3e-3)))
+            b = float(np.float32((sy if up else -sy) * rng.uniform(1e-3, 3e-3)))
+            theta = 0.0 if up else 1.0
+            c = _straddle(a, b, 3, x0, y0, lx, ly, theta, not up)[side]
+            ang = rng.uniform(0, 2 * np.pi) + np.arange(3) * 2 * np.pi / 3
+            edges = _triangle_edges([q + 3 * np.array([np.cos(u), np.sin(u)])
+                                     for u in ang])
+            plane = (a, b, c)
+        segs[t].append(("margin", (g, side, (int(x0) + lx, int(y0) + ly)),
+                        None, _attr_record(rng, edges, plane)))
+
+    # neighbour-bin records reaching a pixel centre through the edge bias
+    for home, reached, axis in ((1, 0, "x"), (0, 1, "x"), (4, 0, "y"),
+                                (0, 4, "y")):
+        x0, y0 = origin(reached)
+        fwd = home > reached               # home lies right of / below
+        n = np.array([1.0, 0.0]) if axis == "x" else np.array([0.0, 1.0])
+        s = 1.0 if fwd else -1.0
+        # the reached tile's last (first) pixel centre before the boundary
+        if axis == "x":
+            lx, ly = (tw - 1 if fwd else 0), int(rng.integers(2, th - 6))
+        else:
+            lx, ly = int(rng.integers(2, tw - 6)), (th - 1 if fwd else 0)
+        q = np.array([x0 + lx + 0.5, y0 + ly + 0.5])
+        # edge s * (n . p) >= s * (n . q) + delta, the reached tile's bias
+        # folded at its origin
+        ex2, ey2 = 0.5 * s * n
+        ew2 = s * float(n @ (np.array([x0, y0]) - q))
+        bias = (abs(ex2) * 2 * tw + abs(ey2) * 2 * th + abs(ew2)) * raster.EDGE_BIAS
+        off = float(n @ q) + s * REACH_BIAS_SHARE * bias
+        edge0 = (s * n[0], s * n[1], -s * off)
+        tan = np.array([-n[1], n[0]])
+        inner = q + s * n * 3.0
+        e = _triangle_edges([inner, q - 0.5 * s * n + 3 * tan,
+                             q - 0.5 * s * n - 3 * tan])
+        rec = _attr_record(rng, [edge0, e[1], e[2]], (0.0, 0.0, 0.05))
+        v = _plane_value(torch.from_numpy(rec[None, :12]), 0, x0, y0, lx, ly)
+        if not float(v) >= 0.0:
+            raise RuntimeError(f"reach record {home} -> {reached} misses ({float(v)})")
+        segs[home].append(("reach", reached, None, rec))
+
+    # killed records inside the segments
+    for t in range(6):
+        for _ in range(2):
+            segs[t].insert(int(rng.integers(0, len(segs[t]) + 1)),
+                           ("killed", None, None, killed.copy()))
+            info["killed"] += 1
+
+    # tiles 6 and 7: near-plane and degenerate records
+    w_, h_ = REJECT_W, REJECT_H
+    near = []
+    while len(near) < 6:
+        cc = rng.uniform(-1, 1, (16, 3, 4)).astype(np.float32)
+        cc[:, :, 3] = rng.uniform(0.2, 2.0, (16, 3))
+        cc[:, 0, 3] = rng.uniform(-1.0, 0.0, 16)      # a vertex at w <= 0
+        cc[:, :, 0] *= 3 * np.abs(cc[:, :, 3])
+        cc[:, :, 1] *= 3 * np.abs(cc[:, :, 3])
+        cc[:, :, 2] = 0.5 * cc[:, :, 3] + 0.05
+        setup = raster.setup_triangles(torch.from_numpy(cc), w_, h_)
+        recs = raster.pack_records(setup, torch.zeros((16, 17)))
+        near += [recs[i].numpy() for i in range(16) if bool(setup.valid[i])]
+    degenerate = []
+    zero = _attr_record(rng, [(0.0, 0.0, 0.0)] * 3, (0.0, 0.0, 0.99))
+    degenerate.append(zero)
+    for scale in (1e25, 1e-30, 1e-38):
+        pts = [np.array([300.0, 18.0]), np.array([340.0, 18.0]),
+               np.array([300.0, 29.0])]
+        edges = [tuple(np.float32(np.array(e) * scale))
+                 for e in _triangle_edges(pts)]
+        degenerate.append(_attr_record(rng, edges, (0.0, 0.0, 0.3)))
+    for bad in (float("nan"), float("inf")):
+        degenerate.append(_attr_record(rng, [(bad, 0.0, 1.0), (0.0, 0.0, 1.0),
+                                             (0.0, 0.0, 1.0)], (0.0, 0.0, 0.1)))
+    for i, rec in enumerate(near[:6]):
+        rec = rec.copy()
+        rec[13:30] = _attr_record(rng, [(0, 0, 0)] * 3, (0, 0, 0))[13:30]
+        segs[6 + i % 2].append(("near_plane", None, None, rec))
+        info["near_plane"] += 1
+    for i, rec in enumerate(degenerate):
+        segs[6 + i % 2].append(("degenerate", None, None, rec))
+        info["degenerate"] += 1
+
+    # pack: tiles 0-5 from row 0 on, tiles 6-7 from the third group
+    g = raster.GROUP
+    n05 = sum(len(s) for s in segs[:6])
+    n67 = sum(len(s) for s in segs[6:])
+    if n05 > 2 * g or n67 > g:
+        raise RuntimeError(f"reject probe overfull: {n05}, {n67}")
+    cap = 4 * g
+    pairs = np.tile(killed, (cap, 1))
+    starts = np.zeros(nt + 1, np.int32)
+    row = 0
+    for t in range(nt):
+        if t == 6:
+            row = 2 * g
+        starts[t] = row
+        for kind, a1, a2, rec in segs[t]:
+            rec = rec.copy()
+            if kind != "killed":
+                rec[12] = row
+            pairs[row] = rec
+            if kind == "margin":
+                info["margin"].append((row, *a1))
+            elif kind == "reach":
+                info["reach"].append((row, t, a1))
+            row += 1
+    starts[nt] = row
+    gpairs = np.tile(killed, (raster.GLOBAL_CAP, 1))
+    dev = torch.device(device)
+    i32 = dict(dtype=torch.int32, device=dev)
+    binned = raster.BinnedTriangles(
+        pairs=torch.from_numpy(pairs).to(dev),
+        starts=torch.from_numpy(starts).to(dev),
+        rstarts=torch.full((REJECT_TILES_Y + 1,), cap, **i32),
+        gpairs=torch.from_numpy(gpairs).to(dev),
+        gmeta=torch.tensor([0, REJECT_TILES_X], **i32),
+        overflow=torch.zeros(3, **i32),
+        demand=torch.tensor(int(row), **i32),
+        tiles_x=REJECT_TILES_X, tiles_y=REJECT_TILES_Y, pair_cap=cap)
+    u = torch.from_numpy(rng.uniform(0, 1, (2, REJECT_H, REJECT_W)))
+    zlo = torch.where(u[0] < 0.5, -1.0, 0.1).float().to(dev)
+    zhi = torch.where(u[1] < 0.5, 2.0, 0.9).float().to(dev)
+    return binned, (zlo, zhi), info

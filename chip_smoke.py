@@ -7,9 +7,10 @@ Phases, each printing its own lines; any failure exits non-zero before
 the final line:
   1. device: the card's name and power limit, torch/CUDA versions;
   2. build: nvcc build of vqengine_tpu_torch/csrc/*.cu (ptxas lines);
-  3. K3 palette kernel vs its plain PyTorch version at main-path shapes
-     (bitwise), both timed with CUDA events, and torch.index_select on the
-     pre-padded table with pre-clamped ids as the library yardstick;
+  3. K3 palette kernel vs its plain PyTorch version at the four main-path
+     lookups (bitwise), both timed with CUDA events, and
+     torch.index_select on the pre-padded table with pre-clamped ids as
+     the library yardstick;
   4. K1 G-buffer raster kernel vs its plain version on the binned Sponza
      1920x1080 frame (tri_id/depth bitwise, gbuf within GBUF_TOL), timed;
      then its MSAA variant on the same frame (depth, tri_id and coverage
@@ -23,10 +24,13 @@ the final line:
      (PERF.md) beside the new one, and what its reject stream keeps by the plain
      mirror of the reject test: the streamed records that survive the
      tile test and the (record, warp footprint) pairs evaluated. Every
-     raster bound (K1 and K2) counts what the inputs need: the flops per
-     record per pixel over the (record, 8x4 block) pairs in which the
-     record covers something (raster.covered_block_pairs), beside the
-     padded stream's bound (stream_bound_ms);
+     raster bound counts what the inputs need: the flops per record per
+     pixel over the (record, 8x4 block) pairs in which the record covers
+     something (raster.covered_block_pairs), or for K2's center variant,
+     whose occlusion reject skips covered but hidden pairs, over the
+     distinct (tri_id, 8x4 block) pairs its output has won
+     (raster.won_block_pairs), beside the padded stream's bound
+     (stream_bound_ms);
   5. K1-bounded (both sample modes) vs its plain version, bitwise: (a) the
      translucent Sponza (SPONZA_TRANSLUCENT) at 1920x1080, the transparent
      pass's two peel windows of the first frame; (b) an alpha-peel window
@@ -37,12 +41,18 @@ the final line:
      windows, ties); pixel counts each check reaches; both variants timed;
      then all four K1 variants on ops/raster_probes.reject_probe (records
      on the reject test's margin, neighbour-bin records reaching through
-     the edge bias, killed, near-plane and degenerate records), bitwise;
+     the edge bias, killed, near-plane and degenerate records), bitwise,
+     and K2 in both sample modes on the same records cut to 16 rows and on
+     ops/raster_probes.depth_reject_probe (records stacked on and around
+     a footprint's depth: the occlusion reject's margin), bitwise;
   6. K2 visibility raster kernel vs its plain version on Sponza's 8 caster
      views at the full shadow budget (spot 1024^2, 6 point faces 1024^2,
      directional 2048^2): pair demand, capacity and overflow per view;
-     depth and tri_id bitwise; timed; then its MSAA variant on the
-     directional and the spot view (per-sample stacks bitwise), timed;
+     depth and tri_id bitwise; timed; what its reject stream keeps and
+     what the occlusion reject drops (the plain mirror, under the
+     kernel's own carries); then its MSAA variant on the directional and
+     the spot view (per-sample stacks bitwise), timed, with its reject
+     stream's counts;
   7. HelloTriangle/HelloCube (and HelloCube with MSAA) at 192x108 on the
      card against the goldens (the bars of
      vqengine_tpu_torch/engine/goldens.py), the entry() frame on the card
@@ -102,12 +112,14 @@ RASTER_FLOPS_MSAA4 = 52
 # K1-bounded: the two window compares on top of K1's and K1-MSAA's
 RASTER_FLOPS_BOUNDED = 38
 RASTER_FLOPS_MSAA_BOUNDED = 54
-# K1's times with the padded stream it had before the reject stream
-# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table), printed beside
-# the new ones; only times within one run compare exactly
-PADDED_STREAM_MS = {"raster_gbuf": 0.8552, "raster_gbuf_msaa": 1.7567,
-                    "raster_gbuf_bounded": 0.7800,
-                    "raster_gbuf_msaa_bounded": 1.5447}
+# The kernels' times before their redesign (NVIDIA H100 80GB HBM3, 700.00
+# W; PERF.md's kernel table): K1's with the padded stream, K2's with the
+# padded stream, K3's scalar gather. Printed beside the new ones; only
+# times within one run compare exactly (tools/time_kernels_torch.py)
+EARLIER_MS = {"raster_gbuf": 0.8552, "raster_gbuf_msaa": 1.7567,
+              "raster_gbuf_bounded": 0.7800,
+              "raster_gbuf_msaa_bounded": 1.5447, "raster_vis": 4.6404,
+              "raster_vis_msaa4": 7.4914, "palette": 0.2967}
 ROOT = Path(__file__).resolve().parent
 
 
@@ -151,16 +163,18 @@ def bound(ops: float, nbytes: float) -> dict:
 
 
 def raster_work(binned, width: int, height: int, out_bytes_px: int,
-                flops: int, mode: str) -> dict:
+                flops: int, mode: str, tri_id=None) -> dict:
     """Operations and bytes of one raster kernel call on these inputs:
     "need", flops per record per pixel times the pixels of every (record,
     8x4-pixel block) pair in which the record covers a pixel centre or
     sample inside the frame in the mode's own test ("pairs",
-    raster.covered_block_pairs, window ignored); "stream", the same flops
-    for every record of every group a tile streams against each of the
-    tile's pixels inside the frame (the padded stream, the earlier
-    bound); "bytes", the binned arrays read once and the outputs written
-    once."""
+    raster.covered_block_pairs, window ignored), or, given tri_id (K2's
+    center output, whose occlusion reject skips covered but hidden pairs),
+    of every distinct (tri_id, 8x4 block) pair it has won ("won",
+    raster.won_block_pairs); "stream", the same flops for every record of
+    every group a tile streams against each of the tile's pixels inside
+    the frame (the padded stream, the earlier bound); "bytes", the binned
+    arrays read once and the outputs written once."""
     from vqengine_tpu_torch.ops import raster
     seq, _ = raster._group_sequences(binned)
     groups = (seq >= 0).sum(dim=1).double()
@@ -168,14 +182,16 @@ def raster_work(binned, width: int, height: int, out_bytes_px: int,
     px_w = (width - (tiles % binned.tiles_x) * raster.TILE_W).clamp(max=raster.TILE_W)
     px_h = (height - (tiles // binned.tiles_x) * raster.TILE_H).clamp(max=raster.TILE_H)
     pairs = raster.covered_block_pairs(binned, width, height, mode)
+    won = 0 if tri_id is None else raster.won_block_pairs(tri_id)
     inputs = (binned.pairs, binned.gpairs, binned.starts, binned.rstarts,
               binned.gmeta)
     return {
-        "need": flops * raster.BLOCK_W * raster.BLOCK_H * float(pairs),
+        "need": (flops * raster.BLOCK_W * raster.BLOCK_H
+                 * float(pairs if tri_id is None else won)),
         "stream": flops * raster.GROUP * float((groups * (px_w * px_h)).sum()),
         "bytes": (sum(t.numel() * t.element_size() for t in inputs)
                   + width * height * out_bytes_px),
-        "pairs": pairs}
+        "pairs": pairs, "won": won}
 
 
 def add_work(a: dict, b: dict) -> dict:
@@ -192,28 +208,36 @@ def raster_bound(work: dict) -> dict:
 
 def bound_text(bd: dict, work: dict, t_k: float) -> str:
     """The bound's line; a kernel faster than its bound means the count
-    of covered pairs is wrong, and fails the run."""
+    of pairs is wrong, and fails the run."""
     if bd["bound_ms"] > t_k:
         fail(f"a raster kernel ran in {t_k} ms, below its bound "
-             f"{bd['bound_ms']} ms: the covered-pair count is wrong")
-    return (f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
-            f"{work['pairs']} covered (record, 8x4 block) pairs), "
+             f"{bd['bound_ms']} ms: the pair count is wrong")
+    basis = (f"{work['won']} won (tri_id, 8x4 block) pairs; "
+             f"{work['pairs']} covered (record, 8x4 block) pairs"
+             if work["won"] else
+             f"{work['pairs']} covered (record, 8x4 block) pairs")
+    return (f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; {basis}), "
             f"{bd['bound_ms'] / t_k:.3f} of it; padded-stream bound "
             f"{bd['stream_bound_ms']:.4f} ms")
 
 
-def reject_text(binned, mode: str) -> str:
-    """What K1's reject stream evaluates on these inputs, by the plain
-    mirror of its test (raster.reject_stream_counts)."""
+def reject_text(c: dict) -> str:
+    """What the reject stream evaluates, by the plain mirror of its tests
+    (raster.reject_stream_counts' counts c)."""
     from vqengine_tpu_torch.ops import raster
-    c = raster.reject_stream_counts(binned, mode)
     feet = len(raster.footprints())
-    return (f"reject stream (plain mirror): {c['tile_survivors']} of "
+    text = (f"reject stream (plain mirror): {c['tile_survivors']} of "
             f"{c['streamed']} streamed records survive the tile test (a) "
             f"({c['tile_survivors'] / max(c['streamed'], 1):.4f}); "
             f"{c['footprint_pairs']} (record, warp footprint) pairs kept by "
-            f"(b), against {feet * c['streamed']} in the padded stream "
+            f"the footprint test (b), against {feet * c['streamed']} in the "
+            f"padded stream "
             f"({c['footprint_pairs'] / max(feet * c['streamed'], 1):.5f})")
+    if "occluded" in c:
+        text += (f"; the occlusion reject drops {c['occluded']} of them "
+                 f"({c['occluded'] / max(c['footprint_pairs'], 1):.4f}), "
+                 f"{c['footprint_pairs'] - c['occluded']} evaluated")
+    return text
 
 
 def phase_device() -> str:
@@ -242,9 +266,11 @@ def phase_build() -> None:
     for line in info.ptxas:
         say(f"[build] {line}")
     lib = _backend.library()
-    say(f"[build] K1 dynamic shared memory per CTA (the reject stream): "
+    say(f"[build] dynamic shared memory per CTA (the reject stream): K1 "
         f"center {lib.vq_raster_gbuf_smem_bytes(0)} bytes, MSAA "
-        f"{lib.vq_raster_gbuf_smem_bytes(1)} bytes (bounded or not)")
+        f"{lib.vq_raster_gbuf_smem_bytes(1)} bytes (bounded or not); K2 "
+        f"center {lib.vq_raster_vis_smem_bytes(0)} bytes, MSAA 4x "
+        f"{lib.vq_raster_vis_smem_bytes(1)} bytes")
 
 
 def load_sponza(dev, translucent: bool = False):
@@ -356,9 +382,10 @@ def phase_raster(dev, sponza, renderer) -> dict:
         f"{binned.pairs.shape[0] // raster.GROUP} groups; tri_id and depth "
         f"bitwise equal, gbuf bitwise {bitwise_equal(g, g2)} "
         f"(max |diff| {gerr}); kernel {t_k:.4f} ms (padded stream, PERF.md: "
-        f"{PADDED_STREAM_MS['raster_gbuf']} ms), plain {t_p:.4f} ms, "
+        f"{EARLIER_MS['raster_gbuf']} ms), plain {t_p:.4f} ms, "
         f"{bound_text(bd, work, t_k)}")
-    say(f"[K1] Sponza {W}x{H}: {reject_text(binned, raster.CENTER)}")
+    say(f"[K1] Sponza {W}x{H}: "
+        f"{reject_text(raster.reject_stream_counts(binned, raster.CENTER))}")
     k1 = {"max_abs_err": max(gerr, float((d - d2).abs().max())),
           "ms": t_k, "plain_ms": t_p, **bd, "library_ms": None}
     return k1, phase_raster_msaa(dev, binned)
@@ -433,10 +460,11 @@ def phase_raster_msaa(dev, binned) -> dict:
                        RASTER_FLOPS_MSAA, raster.COVERAGE)
     bd = raster_bound(work)
     say(f"[K1-MSAA] Sponza {W}x{H}: kernel {t_k:.4f} ms (padded stream, "
-        f"PERF.md: {PADDED_STREAM_MS['raster_gbuf_msaa']} ms), plain {t_p:.4f} "
+        f"PERF.md: {EARLIER_MS['raster_gbuf_msaa']} ms), plain {t_p:.4f} "
         f"ms, {bound_text(bd, work, t_k)} ({RASTER_FLOPS_MSAA} operations "
         f"per record per pixel)")
-    say(f"[K1-MSAA] Sponza {W}x{H}: {reject_text(binned, raster.COVERAGE)}")
+    say(f"[K1-MSAA] Sponza {W}x{H}: "
+        f"{reject_text(raster.reject_stream_counts(binned, raster.COVERAGE))}")
     return {"max_abs_err": gerr, "ms": t_k, "plain_ms": t_p, **bd,
             "library_ms": None}
 
@@ -576,11 +604,11 @@ def phase_raster_bounded(dev, sponza, renderer, st, rt) -> tuple:
         bd = raster_bound(work)
         name = raster.gbuf_kernel_name(msaa, True)
         say(f"[K1-bounded] {name}, translucent Sponza {W}x{H} layer 1: kernel "
-            f"{t_k:.4f} ms (padded stream, PERF.md: {PADDED_STREAM_MS[name]} ms), "
+            f"{t_k:.4f} ms (padded stream, PERF.md: {EARLIER_MS[name]} ms), "
             f"plain {t_p:.4f} ms, {bound_text(bd, work, t_k)} ({flops} "
             f"operations per record per pixel)")
         say(f"[K1-bounded] {name}, translucent Sponza {W}x{H} layer 1: "
-            f"{reject_text(tb, mode)}")
+            f"{reject_text(raster.reject_stream_counts(tb, mode))}")
         timed[name] = {"max_abs_err": errs[msaa], "ms": t_k, "plain_ms": t_p,
                        **bd, "library_ms": None}
     return timed["raster_gbuf_bounded"], timed["raster_gbuf_msaa_bounded"]
@@ -591,7 +619,11 @@ def phase_reject_probe(dev) -> None:
     ops/raster_probes.reject_probe (records on the reject test's margin,
     neighbour-bin records reaching through the edge bias, killed,
     near-plane and degenerate records; the bounded variants with the
-    probe's seeded window): depth, tri_id, gbuf (and coverage) bitwise."""
+    probe's seeded window): depth, tri_id, gbuf (and coverage) bitwise;
+    then K2 in both sample modes on the same records cut to 16 rows and on
+    ops/raster_probes.depth_reject_probe (records stacked on a footprint's
+    depth, on and around the occlusion reject's margin), bitwise, each
+    depth_reject_probe record winning its pixels in the center mode."""
     from vqengine_tpu_torch.ops import raster, raster_probes
     pb, zb, info = raster_probes.reject_probe(device=dev)
     w, h = raster_probes.REJECT_W, raster_probes.REJECT_H
@@ -626,6 +658,36 @@ def phase_reject_probe(dev) -> None:
             if not (margin and (bounded or reach)):
                 fail(f"{name} reject_probe reached nothing: {margin} margin "
                      f"corners, {reach} reach pixels")
+    # K2 in both sample modes: reject_probe's records cut to 16 rows, and
+    # depth_reject_probe's records stacked on a footprint's depth
+    vb = raster_probes.vis_records(pb)
+    db, dinfo = raster_probes.depth_reject_probe(device=dev)
+    dw, dh = raster_probes.DEPTH_W, raster_probes.DEPTH_H
+    for msaa in (False, True):
+        name = "raster_vis_msaa4" if msaa else "raster_vis"
+        for label, b, bw, bh in (("reject_probe", vb, w, h),
+                                 ("depth_reject_probe", db, dw, dh)):
+            out = raster.rasterize(b, bw, bh, msaa=msaa)
+            plain = raster.rasterize_plain(b, bw, bh, msaa=msaa)
+            torch.cuda.synchronize()
+            if not all(bitwise_equal(a, p) for a, p in zip(out, plain)):
+                fail(f"{name} {label}: kernel != plain")
+            line = (f"[reject] {name} on ops/raster_probes.{label} "
+                    f"({bw}x{bh}): bitwise equal; covered "
+                    f"{int((out[1] >= 0).sum())} {'samples' if msaa else 'pixels'}")
+            if label == "depth_reject_probe" and not msaa:
+                won = {k: int((out[1] == row).sum())
+                       for k, row in dinfo["rows"].items()}
+                if any(won[k] != dinfo["winners"].get(k, 0) for k in won):
+                    fail(f"{name} {label}: winners {won}, expected "
+                         f"{dinfo['winners']}")
+                occ = raster.reject_stream_counts(b, raster.CENTER,
+                                                  occlusion=True)["occluded"]
+                line += (f"; pixels won per record {won}; (record, footprint) "
+                         f"pairs the occlusion reject drops {occ} (by the "
+                         f"probe's construction "
+                         f"{sum(len(v) for v in dinfo['occluded'].values())})")
+            say(line)
 
 
 def caster_views(consts) -> list:
@@ -652,7 +714,7 @@ def phase_vis(dev, sponza, renderer) -> dict:
     if len(views) != 8:
         fail(f"Sponza has {len(views)} caster views, expected 8")
     ms = err = 0.0
-    total = {}
+    total, counts = {}, {}
     plain_ms = plain_view = None
     for name, vp, size in views:
         binned = shadow.bin_shadow_view(scene.positions, scene.item_of_vertex,
@@ -670,19 +732,25 @@ def phase_vis(dev, sponza, renderer) -> dict:
             plain_ms = time_ms(lambda: raster.rasterize_plain(binned, size, size),
                                1, warmup=1)
             plain_view = name
-        # depth + tri_id
-        work = raster_work(binned, size, size, 8, RASTER_FLOPS, raster.CENTER)
+        # depth + tri_id; the bound counts the pairs the plain output won
+        work = raster_work(binned, size, size, 8, RASTER_FLOPS, raster.CENTER,
+                           tri_id=i2)
         total = add_work(total, work)
+        c = raster.reject_stream_counts(binned, raster.CENTER, occlusion=True)
+        counts = add_work(counts, c)
         ms += t_k
         say(f"[K2] {name} {size}^2: pair demand {int(binned.demand)}, capacity "
             f"{binned.pair_cap}, overflow {binned.overflow.tolist()}; "
             f"covered {float((i >= 0).float().mean()):.4f}; depth and tri_id "
             f"bitwise equal; kernel {t_k:.4f} ms, "
-            f"{bound_text(raster_bound(work), work, t_k)}")
+            f"{bound_text(raster_bound(work), work, t_k)}; {c['footprint_pairs']} "
+            f"footprint pairs, {c['occluded']} occluded")
     bd = raster_bound(total)
-    say(f"[K2] per frame (8 views): kernel {ms:.4f} ms, "
+    say(f"[K2] per frame (8 views): kernel {ms:.4f} ms (padded stream, "
+        f"PERF.md: {EARLIER_MS['raster_vis']} ms), "
         f"{bound_text(bd, total, ms)}; plain {plain_ms:.4f} ms on the "
         f"{plain_view} view alone")
+    say(f"[K2] per frame (8 views): {reject_text(counts)}")
     k2 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
           "library_ms": None}
     return k2, phase_vis_msaa4(renderer, consts, views)
@@ -694,7 +762,7 @@ def phase_vis_msaa4(renderer, consts, views) -> dict:
     from vqengine_tpu_torch.ops import raster, shadow
     scene = renderer.scene
     ms = plain_ms = err = 0.0
-    total = {}
+    total, counts = {}, {}
     for name, vp, size in [v for v in views if v[0] in ("dir", "spot0")]:
         binned = shadow.bin_shadow_view(scene.positions, scene.item_of_vertex,
                                         consts.world, vp, scene.indices, size)
@@ -712,6 +780,8 @@ def phase_vis_msaa4(renderer, consts, views) -> dict:
         work = raster_work(binned, size, size, 4 * 8, RASTER_FLOPS_MSAA4,
                            raster.SAMPLES4)
         total = add_work(total, work)
+        counts = add_work(counts, raster.reject_stream_counts(binned,
+                                                              raster.SAMPLES4))
         ms += t_k
         plain_ms += t_p
         split = float((i != i[:1]).any(0).float().mean())
@@ -721,8 +791,10 @@ def phase_vis_msaa4(renderer, consts, views) -> dict:
             f"{bound_text(raster_bound(work), work, t_k)} "
             f"({RASTER_FLOPS_MSAA4} operations per record per pixel)")
     bd = raster_bound(total)
-    say(f"[K2-msaa4] both views: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    say(f"[K2-msaa4] both views: kernel {ms:.4f} ms (padded stream, PERF.md: "
+        f"{EARLIER_MS['raster_vis_msaa4']} ms), plain {plain_ms:.4f} ms, "
         f"{bound_text(bd, total, ms)}")
+    say(f"[K2-msaa4] both views: {reject_text(counts)}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
             "library_ms": None}
 
@@ -1098,14 +1170,12 @@ def phase_profile(sponza, renderer) -> None:
         whole: lambda: renderer.render(c, W, H, shadow_maps=maps),
     }
     t = {name: time_ms(fn, 10) for name, fn in stages.items()}
-    t_maps = time_ms(lambda: graph.render_shadow_maps(scene, c), 3, warmup=1)
     rest = t[whole] - sum(v for k, v in t.items() if k != whole)
     for name, v in t.items():
         say(f"[profile] stage {v:8.3f} ms  {name}")
     say(f"[profile] stage {rest:8.3f} ms  tail (G-buffer unpack, K3 material "
         f"fetch, shading, tonemap)")
-    say(f"[profile] stage {t_maps:8.3f} ms  shadow maps (8 views; once per "
-        f"scene with cached maps, in every frame with dynamic casters)")
+    phase_profile_shadow(scene, c)
 
     # the MSAA stages of the engine's default frame
     depth, tri_id, attrs_m, mask, cov = graph.geometry_pass(scene, c, W, H,
@@ -1163,9 +1233,64 @@ def phase_profile(sponza, renderer) -> None:
         f"ms/frame, profiler on); card busy {busy / PROFILE_FRAMES:.3f} "
         f"ms/frame in {k // PROFILE_FRAMES} device ops; idle share "
         f"{1 - busy / window:.4f}")
-    for name, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0])[:15]:
+    ranked = sorted(rows.items(), key=lambda r: -r[1][0])
+    hand = [r for r in ranked if any(
+        f"::{k}<" in r[0]
+        for k in ("palette_kernel", "raster_gbuf_kernel", "raster_vis_kernel"))]
+    for name, (ms, n) in ranked[:15] + [r for r in hand if r not in ranked[:15]]:
         say(f"[profile] {ms / PROFILE_FRAMES:8.4f} ms/frame "
             f"x{n // PROFILE_FRAMES:<4} {name[:100]}")
+
+
+def phase_profile_shadow(scene, c) -> None:
+    """CUDA-event time of render_shadow_maps' stages (ESM, the full
+    budget; 10 runs each, host syncs included), each summed over the 8
+    caster views: front end and binning (shadow.bin_shadow_view: the
+    instanced transform, triangle setup, binning with its host sync), K2,
+    the point faces' radial depth, the ESM prefilter of the spot maps, the
+    point cube and the directional map; then the whole call (10 runs)."""
+    from vqengine_tpu_torch.ops import raster, shadow
+    from vqengine_tpu_torch.render import graph
+    views = caster_views(c)
+
+    def front(vp, size):
+        return shadow.bin_shadow_view(scene.positions, scene.item_of_vertex,
+                                      c.world, vp, scene.indices, size)
+    binned = [(front(vp, size), size) for _, vp, size in views]
+    depth = [raster.rasterize(b, size, size)[0] for b, size in binned]
+    pc = int(c.point_casters.shape[0])
+    sc = int(c.spot_casters.shape[0])
+    nf6 = c.point_caster_range.repeat_interleave(6, dim=0)
+    faces = depth[sc:sc + 6 * pc]
+
+    def radial():
+        return torch.stack([shadow.ndc_depth_to_radial(f, nf6[k, 0], nf6[k, 1])
+                            for k, f in enumerate(faces)])
+    cubes = radial().reshape(pc, 6, *faces[0].shape)
+    spot, dirm = torch.stack(depth[:sc]), depth[-1]
+
+    def prefilter():
+        return (shadow.prefilter_esm(spot, pool=1).to(torch.bfloat16),
+                shadow.prefilter_esm(cubes, pool=2).to(torch.bfloat16),
+                shadow.prefilter_esm(dirm, pool=1).to(torch.bfloat16))
+    stages = {
+        "shadow front end + binning (bin_shadow_view), 8 views":
+            sum(time_ms(lambda: front(vp, size), 10) for _, vp, size in views),
+        "shadow K2 raster_vis, 8 views":
+            sum(time_ms(lambda: raster.rasterize(b, size, size), 10)
+                for b, size in binned),
+        "shadow radial depth of the 6 point faces": time_ms(radial, 10),
+        "shadow ESM prefilter (spot, point cube, directional) + bf16":
+            time_ms(prefilter, 10),
+    }
+    whole = time_ms(lambda: graph.render_shadow_maps(scene, c), 10)
+    for name, v in stages.items():
+        say(f"[profile] stage {v:8.3f} ms  {name}")
+    say(f"[profile] stage {whole:8.3f} ms  shadow maps (render_shadow_maps, 8 "
+        f"views; once per scene with cached maps, in every frame with "
+        f"dynamic casters); its stages above, each timed alone with its own "
+        f"host syncs, sum to {sum(stages.values()):.3f} ms: in one call the "
+        f"host's work on a view overlaps the card's on the one before")
 
 
 def phase_profile_transparent(st, rt) -> None:

@@ -32,7 +32,12 @@ def bitwise(a, b):
     return a.shape == b.shape and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("m,k", [(7, 32), (85, 16), (85, 9), (85, 2), (3, 17)])
+# K in {2, 9, 16, 17, 32}: the vectorised path (K % 4 == 0) and the
+# flattened one, whose n * K % 4 tail is 1 or 2 here; the last three tables
+# (512, 106 and 100 KB) are too large for shared memory (read through
+# __ldg)
+@pytest.mark.parametrize("m,k", [(7, 32), (85, 16), (85, 9), (85, 2), (3, 17),
+                                 (4000, 32), (3000, 9), (1500, 17)])
 def test_palette_kernel_bitwise(cuda, m, k):
     g = torch.Generator().manual_seed(m * k)
     mp = palette.padded_rows(m)
@@ -42,6 +47,19 @@ def test_palette_kernel_bitwise(cuda, m, k):
     before = _backend.launches["palette"]
     out = palette.palette_lookup(idx, table)
     assert _backend.launches["palette"] == before + 1
+    assert bitwise(out, palette.palette_lookup_plain(idx, table))
+
+
+@pytest.mark.parametrize("k", [2, 9, 16, 17, 32])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 7])
+def test_palette_kernel_small(cuda, n, k):
+    """n ids, none to a few segments: only the tail, or a segment and a
+    tail (K = 2, 9, 17), ids below 0, in [M, mp) and past mp."""
+    idx = torch.tensor([-4, 11, 5, 20, 0, 7, 3][:n], dtype=torch.int32,
+                       device=cuda)
+    table = torch.randn(11, k, generator=torch.Generator().manual_seed(k)).to(cuda)
+    out = palette.palette_lookup(idx, table)
+    assert tuple(out.shape) == (n, k)
     assert bitwise(out, palette.palette_lookup_plain(idx, table))
 
 
@@ -72,6 +90,10 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         palette.palette_lookup(torch.zeros(5, dtype=torch.int32, device=cuda),
                                table.t())
+    # n * K = 2^31 outputs: past the kernel's 32-bit indexing
+    with pytest.raises(ValueError):
+        palette.palette_lookup(torch.empty(2 ** 28, dtype=torch.int32,
+                                           device=cuda), table)
 
 
 @pytest.fixture(scope="module")
@@ -207,6 +229,56 @@ def test_raster_vis_msaa4_kernel_bitwise(sponza_card, view, size):
     assert tuple(d.shape) == (4, size, size)
     assert bitwise(d, d2) and bitwise(i, i2)
     assert bool((i != i[:1]).any())
+
+
+@pytest.mark.parametrize("msaa", [False, True])
+def test_raster_vis_kernel_all_views(sponza_card, msaa):
+    """K2 (both sample modes) against its plain version on all 8 Sponza
+    caster views at a quarter of their sizes (spot and point faces 256^2,
+    directional 512^2)."""
+    _, r, c = sponza_card
+    sc = r.scene
+    views = ([(c.spot_caster_vps[0], 256), (c.dir_vp[0], 512)]
+             + [(c.point_caster_vps[0, f], 256) for f in range(6)])
+    for vp, size in views:
+        binned = shadow.bin_shadow_view(sc.positions, sc.item_of_vertex,
+                                        c.world, vp, sc.indices, size)
+        d, i = raster.rasterize(binned, size, size, msaa=msaa)
+        d2, i2 = raster.rasterize_plain(binned, size, size, msaa=msaa)
+        assert bitwise(d, d2) and bitwise(i, i2)
+
+
+@pytest.mark.parametrize("msaa", [False, True])
+def test_raster_vis_kernel_depth_reject_probe(cuda, msaa):
+    """K2 against its plain version on raster_probes.depth_reject_probe
+    (records stacked on a footprint's depth, one ulp and within the margin
+    of it, hidden in one footprint and visible in the next, the cleared
+    carry 1.0, a NaN depth): bitwise, and in the center mode each record
+    wins its pixels."""
+    pb, info = raster_probes.depth_reject_probe(device=cuda)
+    w, h = raster_probes.DEPTH_W, raster_probes.DEPTH_H
+    name = "raster_vis_msaa4" if msaa else "raster_vis"
+    before = _backend.launches[name]
+    d, i = raster.rasterize(pb, w, h, msaa=msaa)
+    assert _backend.launches[name] == before + 1
+    d2, i2 = raster.rasterize_plain(pb, w, h, msaa=msaa)
+    assert bitwise(d, d2) and bitwise(i, i2)
+    if not msaa:
+        for rec, row in info["rows"].items():
+            assert int((i == row).sum()) == info["winners"].get(rec, 0), rec
+
+
+@pytest.mark.parametrize("msaa", [False, True])
+def test_raster_vis_kernel_reject_probe(cuda, msaa):
+    """K2 (both sample modes) against its plain version on
+    raster_probes.reject_probe's records cut to 16 rows: bitwise."""
+    pb, _, _ = raster_probes.reject_probe(device=cuda)
+    pb = raster_probes.vis_records(pb)
+    w, h = raster_probes.REJECT_W, raster_probes.REJECT_H
+    d, i = raster.rasterize(pb, w, h, msaa=msaa)
+    d2, i2 = raster.rasterize_plain(pb, w, h, msaa=msaa)
+    assert bitwise(d, d2) and bitwise(i, i2)
+    assert int((i >= 0).sum()) > 0
 
 
 @pytest.mark.parametrize("mode", ["neighbor", "shade"])

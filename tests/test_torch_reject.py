@@ -1,11 +1,14 @@
-"""The reject test of K1's stream (ops/raster.py reject_block, the plain
-mirror of raster_common.cuh's reject_record) and the restated raster
-bound (raster.covered_block_pairs), on the CPU without JAX.
+"""The reject tests of the raster kernels' stream (ops/raster.py
+reject_block and depth_reject_block, the plain mirrors of
+raster_common.cuh's reject_record and of K2's occlusion reject) and the
+restated raster bounds (raster.covered_block_pairs, won_block_pairs), on
+the CPU without JAX.
 
-The kernel may skip a (record, pixel block) pair only where the record
-changes nothing there; these tests hold the mirror to that on crafted,
-rendered and drawn records, at every level the kernel tests (the tile, a
-warp's 32x8 footprint) and below it (8x4 blocks, single pixels)."""
+The kernels may skip a (record, pixel block) pair only where the record
+changes nothing there; these tests hold the mirrors to that on crafted,
+rendered and drawn records, at every level the kernels test (the tile, a
+warp's 32x8 footprint) and below it (8x4 blocks, single pixels), in the
+three sample modes (K1's CENTER and COVERAGE, K2's CENTER and SAMPLES4)."""
 import numpy as np
 import pytest
 import torch
@@ -14,7 +17,7 @@ from hypothesis import strategies as st
 
 from vqengine_tpu_torch.entry import HEIGHT, WIDTH, entry
 from vqengine_tpu_torch.ops import raster as tr
-from vqengine_tpu_torch.ops import raster_probes
+from vqengine_tpu_torch.ops import raster_probes, shadow
 from vqengine_tpu_torch.render import graph
 
 torch.set_num_threads(1)
@@ -66,16 +69,32 @@ def _entry_binned():
     return tr.bin_triangles(setup, WIDTH, HEIGHT, extra=extra)
 
 
+def _entry_light_view():
+    """The entry scene seen through its camera as a 64^2 shadow view (16-row
+    records, shadow.bin_shadow_view)."""
+    _, (scene, consts) = entry(CPU)
+    return shadow.bin_shadow_view(scene.positions, scene.item_of_vertex,
+                                  consts.world, consts.view_proj,
+                                  scene.indices, 64)
+
+
 INPUTS = {
     "reject_probe": lambda: raster_probes.reject_probe()[0],
     "msaa_probe": lambda: raster_probes.msaa_probe()[0],
     "bounded_probe": lambda: raster_probes.bounded_probe()[0],
     "entry_256x128": _entry_binned,
+    "depth_reject_probe": lambda: raster_probes.depth_reject_probe()[0],
+    "entry_light_64": _entry_light_view,
 }
+K1_INPUTS = ("bounded_probe", "entry_256x128", "msaa_probe", "reject_probe")
 
 
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("name", sorted(INPUTS))
+# K1's inputs in its two modes; SAMPLES4 (K2-msaa4) on the crafted records
+# and a light view
+@pytest.mark.parametrize("name,mode", [
+    *((n, m) for n in K1_INPUTS for m in MODES),
+    ("reject_probe", tr.SAMPLES4), ("depth_reject_probe", tr.SAMPLES4),
+    ("entry_light_64", tr.SAMPLES4)])
 def test_reject_keeps_every_covered_pair(name, mode):
     """The mirror never rejects a (record, block) pair that the plain split
     evaluation covers, at the tile, the warp footprint, the 8x4 block and
@@ -109,7 +128,8 @@ def test_reject_probe_reaches_the_margin():
 @settings(max_examples=60, deadline=None)
 @given(seed=st.integers(0, 2 ** 31 - 1), tx=st.integers(0, 15),
        ty=st.integers(0, 70), log_scale=st.integers(-30, 30),
-       steps=st.integers(-40, 40), mode=st.sampled_from(MODES))
+       steps=st.integers(-40, 40),
+       mode=st.sampled_from((*MODES, tr.SAMPLES4)))
 def test_reject_keeps_drawn_records(seed, tx, ty, log_scale, steps, mode):
     """Drawn records at a drawn tile: each plane passes near a drawn pixel
     centre, its constant moved by a drawn number of small steps, all
@@ -134,7 +154,7 @@ def test_reject_keeps_drawn_records(seed, tx, ty, log_scale, steps, mode):
     assert all(bad == 0 for bad, _ in v.values()), v
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", (*MODES, tr.SAMPLES4))
 def test_reject_drops_killed_records(mode):
     """A killed record (e'0 = (0, 0, -1)) is rejected at every tile origin
     and every level, and so costs no evaluation."""
@@ -181,3 +201,60 @@ def _quad_binned(width: int, height: int):
 def test_covered_block_pairs_hand_count(mode, width, height, count):
     assert tr.covered_block_pairs(_quad_binned(width, height), width, height,
                                   mode) == count
+
+
+def test_won_block_pairs_hand_count():
+    """_quad_binned's record wins columns 8..23, rows 4..15 (CENTER): 2 x 3
+    blocks of 8x4; in a 20 x 14 frame columns 8..19, rows 4..13: 2 x 3."""
+    for width, height in ((128, 16), (20, 14)):
+        _, tri = tr.rasterize(_vis(_quad_binned(width, height)), width, height)
+        assert tr.won_block_pairs(tri) == 6
+
+
+def _vis(binned):
+    return raster_probes.vis_records(binned)
+
+
+DEPTH_INPUTS = {
+    "depth_reject_probe": INPUTS["depth_reject_probe"],
+    "reject_probe": lambda: _vis(raster_probes.reject_probe()[0]),
+    "entry_light_64": _entry_light_view,
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEPTH_INPUTS))
+def test_depth_floor_below_every_computed_depth(name):
+    """The occlusion reject's floor (depth_floor_block: Vmin - M of the
+    depth plane) never exceeds the split-evaluated z at any pixel of the
+    block, for every record each tile streams, at the warp footprint, the
+    8x4 block and the pixel: so a record whose floor is at or above every
+    carry of a footprint passes the strict z < depth nowhere in it."""
+    checked = 0
+    for x0, y0, rec, live in tr.streamed_groups(DEPTH_INPUTS[name]()):
+        z = tr._plane_eval_split(rec, x0, y0, XS, YS)[3]
+        c, g = rec.shape[:2]
+        for bh, bw in LEVELS[1:]:
+            ny, nx = tr.TILE_H // bh, tr.TILE_W // bw
+            zb = z.view(c, g, ny, bh, nx, bw).double()
+            r0 = (torch.arange(ny) * bh)[:, None].expand(ny, nx)
+            c0 = (torch.arange(nx) * bw)[None, :].expand(ny, nx)
+            floor = tr.depth_floor_block(
+                rec[:, :, None, None, :], x0[:, None, None, None],
+                y0[:, None, None, None], (c0, c0 + bw - 1), (r0, r0 + bh - 1))
+            bad = (floor[:, :, :, None, :, None] > zb) & live[:, None, None, None,
+                                                              None, None]
+            assert int(bad.sum()) == 0, (name, bh, bw)
+            checked += int(live.sum()) * g * ny * nx
+    assert checked > 0
+
+
+def test_depth_reject_probe_occlusion_count():
+    """The mirror's occlusion reject, under the kernel's carries, drops
+    exactly the (record, footprint) pairs that depth_reject_probe
+    constructs as hidden, and the probe's records win their pixels."""
+    binned, info = raster_probes.depth_reject_probe()
+    counts = tr.reject_stream_counts(binned, tr.CENTER, occlusion=True)
+    assert counts["occluded"] == sum(len(v) for v in info["occluded"].values())
+    _, tri = tr.rasterize(binned, raster_probes.DEPTH_W, raster_probes.DEPTH_H)
+    for rec, row in info["rows"].items():
+        assert int((tri == row).sum()) == info["winners"].get(rec, 0), rec

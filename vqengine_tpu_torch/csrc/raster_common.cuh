@@ -1,4 +1,4 @@
-// The tile streams shared by the raster kernels: K1 (raster_gbuf.cu,
+// The tile stream shared by the raster kernels: K1 (raster_gbuf.cu,
 // 32-float records) and K2 (raster_vis.cu, 16-float records), each in a
 // center-sample and an MSAA 4x mode.
 //
@@ -43,29 +43,24 @@
 // a tensor-core MMA neither orders nor rounds its accumulation in a
 // specified way.
 //
-// Two streams:
-// - stream_tile (K2): every record of every streamed group against every
-//   pixel. Per group, all 256 threads (each one record and two planes)
-//   compute the constants into shared memory, then every thread walks the
-//   128 records for its 8 pixels.
-// - stream_tile_reject (K1, all four variants): the same records in the
-//   same order, but a record is evaluated only where its planes can reach.
-//   The stream is cut into batches of 256 records, each loaded (its 12
-//   plane floats, as 16-byte cp.async copies, three threads to a record)
-//   into a two-slot ring while the previous batch is evaluated. (a) Each
-//   thread folds one record's plane constants and tests it against the
-//   whole tile; the survivors are compacted in stream order (ballot and
-//   prefix) and only they get their bf16 split and thresholds. (b) Each
-//   warp tests 32 survivors at a time against its own footprint (one per
-//   lane, then a ballot) and evaluates, in stream order, only those that
-//   pass: a warp-uniform branch, so a skipped record costs the warp one
-//   test instead of 8 pixels x 4 planes per lane. Three __syncthreads per
-//   batch of 256 records.
+// The stream (stream_tile_reject, every kernel): a record is evaluated
+// only where its planes can reach. The stream is cut into batches of 256
+// records, each loaded (its 12 plane floats, as 16-byte cp.async copies,
+// three threads to a record) into a two-slot ring while the previous batch
+// is evaluated. (a) Each thread folds one record's plane constants and
+// tests it against the whole tile; the survivors are compacted in stream
+// order (ballot and prefix) and only they get their bf16 split and
+// thresholds or sample offsets. (b) Each warp tests 32 survivors at a time
+// against its own footprint (one per lane, then a ballot) and evaluates,
+// in stream order, only those that pass: a warp-uniform branch, so a
+// skipped record costs the warp one test instead of 8 pixels x 4 planes
+// per lane. Three __syncthreads per batch of 256 records. K2's center mode
+// adds the occlusion reject to (b) (OCCLUDE, below).
 //
 // Why skipping is exact. A record that covers no pixel and no sample of a
 // block changes nothing there: in CENTER mode cover is false; in COVERAGE
 // mode its coverage bits are 0 and its key is the clear value 4, which is
-// never below the carry. So dropping it leaves every carry, winner and bit
+// never below the carry; in SAMPLES4 mode no sample is covered. So dropping it leaves every carry, winner and bit
 // as they were, and the survivors keep their stream order. The test
 // (reject_record) rejects only such records, for the mode's own test and
 // with the window ignored (it only removes fragments):
@@ -81,6 +76,16 @@
 //   the sum of its absolute products);
 // - reject where zmax + M < 0, and in COVERAGE mode also where
 //   zmin - M > 1;
+// - SAMPLES4: sample s is covered where every fl(b_i + o_is) >= 0, o_is =
+//   sample_offset(e_ix, e_iy, dx_s, dy_s) for the three edges and the
+//   depth plane alike. |o_is| <= (3/8)(|e_ix| + |e_iy|)(1 + 2^-22), the
+//   products and the sum each rounding by at most 2^-24, so reject where
+//   Vmax + M < -(3/4)(|ex2| + |ey2|)(1 + 2^-20) for any of the four
+//   planes. The sample's one extra f32 addition needs no margin of its
+//   own: the sum of two floats rounds to a float of the same sign (a
+//   nonzero sum of two floats never rounds to zero, with subnormals), so
+//   where b_i + o_is < 0 exactly, its f32 sum fails the test too, and M
+//   already bounds b_i against V;
 // - killed records (e'0 = (0, 0, -1)) fail edge 0 by about 1 everywhere.
 // The margin M = 2^-15 A + 2^-100, A = |ex2| X1 + |ey2| Y1 + |ew2|,
 // bounds what the kernel computes against V. With h = bf16(v) and
@@ -96,6 +101,23 @@
 // whose own error (2^-52 relative) the factor of 1.9 absorbs. A NaN plane
 // fails every compare, so it is never rejected. ops/raster.py's
 // reject_block is the same test in PyTorch, operation for operation.
+//
+// The occlusion reject (OCCLUDE: K2's center mode, which keeps only the
+// nearest depth and its id: no G-buffer, coverage bits or window). In
+// (b), each warp takes the largest of its footprint's 256 depth carries
+// (per lane over its 8 rows, then shuffles: no barrier) once before each
+// 32 survivors, and a lane also drops its survivor where the depth floor
+// F = Vmin - M of the z plane over the footprint's pixel centres (f64, as
+// above: depth_floor) is >= that largest carry D. Exact: the computed z at
+// every pixel of the footprint is within M / 1.9 of V >= Vmin, so above F
+// >= D; carries only fall, so D is at least each pixel's carry when the
+// record's turn comes; and the strict z < depth then fails everywhere, so
+// the record would change no depth and no id. The cleared carry 1.0 is a
+// carry like any other (a record can win there only with z < 1), and a
+// NaN plane gives a NaN floor, which is never >= D. Nothing changes for a
+// record that covers nothing: (a) and the footprint test already drop it.
+// ops/raster.py's depth_reject_block is the plain mirror. No tile-level
+// depth test: it would cost another barrier per batch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -227,7 +249,6 @@ template <int MODE>
 __device__ __forceinline__ bool reject_record(const float* t, int stride,
                                               double X0, double X1,
                                               double Y0, double Y1) {
-  static_assert(MODE != SAMPLES4, "K2-msaa4 has no reject test yet");
   bool rej = false;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
@@ -243,11 +264,13 @@ __device__ __forceinline__ bool reject_record(const float* t, int stride,
                   REJECT_REL),
         REJECT_ABS);
     const double top = __dadd_rn(vmax, m);
-    if (p < 3) {
-      const double thr =
-          MODE == CENTER ? 0.0
-                         : -__dmul_rn(__dmul_rn(__dadd_rn(aa, ab), 0.75),
-                                      REJECT_THR);
+    // the smallest value the mode accepts: 0, or a lower bound of every
+    // sample's threshold (the sample's offset, negated)
+    const double thr =
+        MODE == CENTER ? 0.0
+                       : -__dmul_rn(__dmul_rn(__dadd_rn(aa, ab), 0.75),
+                                    REJECT_THR);
+    if (p < 3 || MODE == SAMPLES4) {
       rej = rej || top < thr;
     } else {
       rej = rej || top < 0.0;
@@ -261,6 +284,26 @@ __device__ __forceinline__ bool reject_record(const float* t, int stride,
     }
   }
   return rej;
+}
+
+// The occlusion reject's floor: the depth plane's smallest real value over
+// the pixel centres X in [X0, X1], Y in [Y0, Y1], less the margin M, in
+// f64 (t as in reject_record). The computed z of every pixel there is
+// above it.
+__device__ __forceinline__ double depth_floor(const float* t, int stride,
+                                              double X0, double X1,
+                                              double Y0, double Y1) {
+  const double a = t[9 * stride], b = t[10 * stride], c = t[11 * stride];
+  const double vmin = __dadd_rn(__dadd_rn(__dmul_rn(a, a >= 0.0 ? X0 : X1),
+                                          __dmul_rn(b, b >= 0.0 ? Y0 : Y1)),
+                                c);
+  const double m = __dadd_rn(
+      __dmul_rn(__dadd_rn(__dadd_rn(__dmul_rn(fabs(a), X1),
+                                    __dmul_rn(fabs(b), Y1)),
+                          fabs(c)),
+                REJECT_REL),
+      REJECT_ABS);
+  return __dsub_rn(vmin, m);
 }
 
 // One record (constants c, ModeInfo<MODE>::NC floats; winner id `id`)
@@ -360,75 +403,7 @@ __device__ __forceinline__ void clear_carries(float* depth, int* win,
 }
 
 // ---------------------------------------------------------------------------
-// stream_tile: every record against every pixel (K2)
-// ---------------------------------------------------------------------------
-
-// Stream groups [g0, g1) of `src` (records of REC floats). Winners from
-// the global tier are encoded as -2 - row, from the pair array as row
-// (>= 0); -1 = none.
-template <int REC, int MODE>
-__device__ __forceinline__ void stream_groups(
-    const float* __restrict__ src, int g0, int g1, bool global_tier,
-    float x0, float y0, float (*consts)[ModeInfo<MODE>::NC], int lx,
-    int row0, float* depth, int* win, unsigned* cov) {
-  static_assert(MODE != COVERAGE, "K1 streams with stream_tile_reject");
-  const int t = threadIdx.x;
-  const float X = (float)(2 * lx + 1);
-  for (int g = g0; g < g1; ++g) {
-    __syncthreads();  // the previous group's constants are consumed
-    {
-      const int r = t % GROUP;
-      const float* rec = src + ((long long)g * GROUP + r) * REC;
-      for (int q = 0; q < 2; ++q) {
-        const int p = (t / GROUP) * 2 + q;
-        float folded[3];
-        fold_plane(rec, p, x0, y0, folded);
-        split_plane(folded, consts[r] + 6 * p);
-        if constexpr (MODE == SAMPLES4) {
-          const float ex = rec[3 * p], ey = rec[3 * p + 1];
-#pragma unroll
-          for (int s = 0; s < NS; ++s)
-            consts[r][PLANE_CONSTS + 4 * s + p] =
-                sample_offset(ex, ey, sample_dx(s), sample_dy(s));
-        }
-      }
-    }
-    __syncthreads();
-    for (int r = 0; r < GROUP; ++r) {
-      const int row = g * GROUP + r;
-      eval_record<MODE, false>(consts[r], global_tier ? -2 - row : row, X,
-                               row0, depth, win, cov, nullptr, nullptr);
-    }
-  }
-}
-
-// The whole stream of tile (tx, ty): global tier, tile-row tier, tile
-// tier, each segment rounded out to whole groups.
-template <int REC, int MODE>
-__device__ __forceinline__ void stream_tile(
-    const float* __restrict__ pairs, const float* __restrict__ gpairs,
-    const int* __restrict__ starts, const int* __restrict__ rstarts,
-    const int* __restrict__ gmeta, int tx, int ty, int tiles_x,
-    float (*consts)[ModeInfo<MODE>::NC], int lx, int row0, float* depth,
-    int* win, unsigned* cov) {
-  const int tile = ty * tiles_x + tx;
-  const float x0 = (float)(tx * TILE_W);
-  const float y0 = (float)(ty * TILE_H);
-  clear_carries<MODE>(depth, win, cov);
-  const int gcount = gmeta[0];
-  stream_groups<REC, MODE>(gpairs, 0, (gcount + GROUP - 1) / GROUP, true, x0,
-                           y0, consts, lx, row0, depth, win, cov);
-  stream_groups<REC, MODE>(pairs, rstarts[ty] / GROUP,
-                           (rstarts[ty + 1] + GROUP - 1) / GROUP, false, x0,
-                           y0, consts, lx, row0, depth, win, cov);
-  stream_groups<REC, MODE>(pairs, starts[tile] / GROUP,
-                           (starts[tile + 1] + GROUP - 1) / GROUP, false, x0,
-                           y0, consts, lx, row0, depth, win, cov);
-}
-
-// ---------------------------------------------------------------------------
 // stream_tile_reject: records evaluated only where their planes can reach
-// (K1)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -494,14 +469,17 @@ __device__ __forceinline__ void load_batch(const float* __restrict__ pairs,
   }
 }
 
-template <int REC, int MODE, bool BOUNDED>
+// OCCLUDE (K2 center only): (b) also drops the survivors that the
+// footprint's current depths hide (the header's occlusion reject).
+template <int REC, int MODE, bool BOUNDED, bool OCCLUDE>
 __device__ __forceinline__ void stream_tile_reject(
     const float* __restrict__ pairs, const float* __restrict__ gpairs,
     const int* __restrict__ starts, const int* __restrict__ rstarts,
     const int* __restrict__ gmeta, int tx, int ty, int tiles_x, float* smem,
     int lx, int row0, float* depth, int* win, unsigned* cov,
     const float* zlo, const float* zhi) {
-  static_assert(MODE != SAMPLES4, "K2-msaa4 streams with stream_tile");
+  static_assert(!OCCLUDE || (MODE == CENTER && !BOUNDED),
+                "the occlusion reject is exact for K2's center mode only");
   using S = RejectSmem<MODE>;
   constexpr int NC = ModeInfo<MODE>::NC;
   float* ring = smem;
@@ -587,17 +565,36 @@ __device__ __forceinline__ void stream_tile_reject(
                 msaa_threshold(ex, ey, s, coverage_fused(s, e));
           c[PLANE_CONSTS + 3 * NS + e] = msaa_threshold(ex, ey, 1, key_fused(1, e));
         }
+      } else if constexpr (MODE == SAMPLES4) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            c[PLANE_CONSTS + 4 * s + p] = sample_offset(
+                raw[3 * p], raw[3 * p + 1], sample_dx(s), sample_dy(s));
+        }
       }
       ids[pos] = m.id(v);
     }
     __syncthreads();  // the survivors are in place
 
-    // (b) per warp: 32 survivors tested against the footprint, then the
-    // kept ones evaluated in stream order
+    // (b) per warp: 32 survivors tested against the footprint (and with
+    // OCCLUDE against its largest current depth), then the kept ones
+    // evaluated in stream order
     for (int c0 = 0; c0 < total; c0 += 32) {
       const int i = c0 + lane;
-      const bool mine = i < total && !reject_record<MODE>(test + i, BATCH, fx0,
-                                                          fx1, fy0, fy1);
+      bool mine = i < total && !reject_record<MODE>(test + i, BATCH, fx0,
+                                                    fx1, fy0, fy1);
+      if constexpr (OCCLUDE) {
+        float farthest = depth[0];
+#pragma unroll
+        for (int r = 1; r < ROWS; ++r) farthest = fmaxf(farthest, depth[r]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          farthest = fmaxf(farthest, __shfl_xor_sync(0xffffffffu, farthest, o));
+        mine = mine && !(depth_floor(test + i, BATCH, fx0, fx1, fy0, fy1) >=
+                         (double)farthest);
+      }
       unsigned kept = __ballot_sync(0xffffffffu, mine);
       while (kept) {
         const int r = c0 + __ffs(kept) - 1;

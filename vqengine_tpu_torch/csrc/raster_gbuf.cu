@@ -95,7 +95,7 @@ raster_gbuf_kernel(const float* __restrict__ pairs,
       zhi[i] = zhi_img[o];
     }
   }
-  stream_tile_reject<REC, MODE, BOUNDED>(
+  stream_tile_reject<REC, MODE, BOUNDED, false>(
       pairs, gpairs, starts, rstarts, gmeta, tx, ty, tiles_x,
       reinterpret_cast<float*>(smem), lx, row0, depth, win, &cov, zlo, zhi);
 

@@ -121,9 +121,9 @@ def build() -> BuildInfo:
     return BuildInfo(lib, seconds, ptxas)
 
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "vq_palette_lookup": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    "vq_palette_lookup": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vq_raster_gbuf": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P, _P, _P, _P],
     "vq_raster_vis": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -150,8 +150,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.vq_raster_gbuf_smem_bytes.argtypes = [ctypes.c_int]
-        lib.vq_raster_gbuf_smem_bytes.restype = ctypes.c_int
+        for name in ("vq_raster_gbuf_smem_bytes", "vq_raster_vis_smem_bytes"):
+            getattr(lib, name).argtypes = [ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
         lib.vq_error_string.argtypes = [ctypes.c_int]
         lib.vq_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,23 +1,25 @@
 """Frustum culling + LOD selection over [N] item tensors.
 
 Counterpart of ``vqengine_tpu/ops/culling.py`` (the reference's CPU cull,
-Culling.cpp:153-173, :322-422). The contractions are written as explicit
-multiply-adds in a fixed order.
+Culling.cpp:153-173, :322-422). Every sum rounds as XLA's CPU backend
+rounds the reference's einsums (raster.matvec_fma, raster.world_view_proj),
+and the LOD comes from f32 area thresholds found against the reference's
+log10, so visibility, LOD and area are bitwise the reference's.
 """
 from __future__ import annotations
 
 import torch
 
 from .palette import palette_lookup
-from .raster import dot_last, matvec
+from .raster import matvec_fma
 
 
 def world_aabbs(world: torch.Tensor, centers: torch.Tensor,
                 extents: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Local AABBs through per-item world matrices [N, 4, 4] ->
     (world centers [N, 3], world extents [N, 3])."""
-    c = matvec(world[:, :3, :3], centers) + world[:, :3, 3]
-    e = matvec(world[:, :3, :3].abs(), extents)
+    c = matvec_fma(world[:, :3, :3], centers) + world[:, :3, 3]
+    e = matvec_fma(world[:, :3, :3].abs(), extents)
     return c, e
 
 
@@ -25,8 +27,8 @@ def frustum_cull(world_centers: torch.Tensor, world_extents: torch.Tensor,
                  planes: torch.Tensor) -> torch.Tensor:
     """AABB vs frustum planes [6, 4] (inside: ax+by+cz+d >= 0) -> visible
     mask [N]."""
-    d = dot_last(world_centers[:, None, :], planes[None, :, :3]) + planes[None, :, 3]
-    r = dot_last(world_extents[:, None, :], planes[None, :, :3].abs())
+    d = matvec_fma(planes[:, :3], world_centers) + planes[None, :, 3]
+    r = matvec_fma(planes[:, :3].abs(), world_extents)
     return (d + r >= 0.0).all(dim=1)
 
 
@@ -39,7 +41,10 @@ def projected_bb_area(world_centers: torch.Tensor, world_extents: torch.Tensor,
     signs = torch.tensor(_SIGNS, dtype=torch.float32, device=world_centers.device)
     corners = world_centers[:, None, :] + signs[None] * world_extents[:, None, :]
     hom = torch.cat([corners, torch.ones_like(corners[..., :1])], dim=-1)
-    clip = matvec(view_proj, hom)                              # [N, 8, 4]
+    # the reference's einsum "ij,nkj->nki", its four products summed in
+    # pairs as XLA sums it on the CPU
+    t = [view_proj[:, j] * hom[..., j, None] for j in range(4)]
+    clip = (t[0] + t[1]) + (t[2] + t[3])                       # [N, 8, 4]
     w = torch.where(clip[..., 3].abs() > 1e-9, clip[..., 3],
                     torch.full_like(clip[..., 3], 1e-9))
     ndc = clip[..., :2] / w[..., None]
@@ -47,11 +52,30 @@ def projected_bb_area(world_centers: torch.Tensor, world_extents: torch.Tensor,
     return ext[..., 0] * ext[..., 1]
 
 
+# t_j (j = 0..6): the smallest f32 area whose reference LOD
+# ceil(-log10(area) - 1) is at most j, as f32 bit patterns. Found by
+# bisection over f32 bit patterns against the reference's XLA log10 (which
+# rounds otherwise than torch.log10 on about a quarter of f32 inputs);
+# tests/test_torch_culling.py finds them again and pins the LOD on both
+# sides of each.
+LOD_AREA_THRESHOLD_BITS = (0x3DCCCCCB, 0x3C23D707, 0x3A83126C, 0x38D1B70F,
+                           0x3727C5AB, 0x358637B8, 0x33D6BF8B)
+
+
+def lod_area_thresholds(device=None) -> torch.Tensor:
+    """t_0..t_6 as an f32 tensor [7]."""
+    return torch.tensor(LOD_AREA_THRESHOLD_BITS, dtype=torch.int32,
+                        device=device).view(torch.float32)
+
+
 def lod_from_projected_area(area: torch.Tensor, num_lods: torch.Tensor,
                             max_lods: int = 8) -> torch.Tensor:
-    """LOD k while area <= 0.1 * 10^-k, clamped to the mesh's LOD count."""
-    area = torch.clamp(area, min=1e-30)
-    k = torch.ceil(-torch.log10(area) - 1.0).to(torch.int32)
+    """LOD k while area <= 0.1 * 10^-k, clamped to the mesh's LOD count
+    (max_lods <= 8): the count of thresholds t_j above the area, which is
+    the reference's clip(ceil(-log10(max(area, 1e-30)) - 1), 0, 7) on
+    every f32 area (NaN and inf give 0, as there)."""
+    t = lod_area_thresholds(area.device)
+    k = (area[..., None] < t).sum(dim=-1).to(torch.int32)
     k = k.clamp(0, max_lods - 1)
     return torch.minimum(k, num_lods - 1)
 

@@ -35,11 +35,15 @@ def _palette_lookup_cuda(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor
     _backend.require(idx, "idx", torch.int32, dev)
     _backend.require(table, "table", torch.float32, dev, ndim=2)
     m, k = table.shape
+    n = idx.numel()
+    if n * k >= 2 ** 31 or padded_rows(m) * k >= 2 ** 31:
+        raise ValueError(f"palette_lookup: {n} x {k} outputs or a {m} x {k} "
+                         f"table; the kernel indexes in 32 bits")
     out = torch.empty((*idx.shape, k), dtype=torch.float32, device=dev)
     lib = _backend.library()
     code = lib.vq_palette_lookup(idx.data_ptr(), table.data_ptr(),
-                                 out.data_ptr(), idx.numel(), m,
-                                 padded_rows(m), k, _backend.stream_of(idx))
+                                 out.data_ptr(), n, m, padded_rows(m), k,
+                                 _backend.stream_of(idx))
     _backend.check_launch("palette", code)
     return out
 

@@ -61,16 +61,6 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum(a * b, -1) with the terms added left to right (a fixed order,
-    so CPU and GPU round alike)."""
-    prod = a * b
-    out = prod[..., 0]
-    for j in range(1, prod.shape[-1]):
-        out = out + prod[..., j]
-    return out
-
-
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """a*b + c rounded once, as a fused multiply-add: the f32 product is
     exact in f64, so only the f64 sum and the final f32 rounding remain
@@ -132,12 +122,6 @@ def world_view_proj(vp: torch.Tensor, world: torch.Tensor) -> torch.Tensor:
     einsum on the CPU."""
     t = [vp[None, :, j, None] * world[:, None, j, :] for j in range(4)]
     return (t[0] + t[1]) + (t[2] + t[3])
-
-
-def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """[..., I, J] x [..., J] -> [..., I] (the reference's einsum
-    "cij,cj->ci") as explicit multiply-adds."""
-    return dot_last(m, v.unsqueeze(-2))
 
 
 # ===========================================================================
@@ -898,45 +882,58 @@ def rasterize_gbuf(binned: BinnedTriangles, width: int, height: int,
 
 
 # ===========================================================================
-# 4b. where a record can reach: K1's reject test, and the work the raster
-#     kernels need
+# 4b. where a record can reach: the reject stream's tests, and the work
+#     the raster kernels need
 # ===========================================================================
 
-FOOT_W, FOOT_H = 32, 8      # a K1 warp's pixels (raster_common.cuh)
+FOOT_W, FOOT_H = 32, 8      # a warp's pixels (raster_common.cuh)
 BLOCK_W, BLOCK_H = 8, 4     # covered_block_pairs' pixel block
 REJECT_REL = 2.0 ** -15     # the reject margin per unit of sum |terms|
 REJECT_ABS = 2.0 ** -100    # its floor
 REJECT_THR = 1.0 + 2.0 ** -20
+BATCH = 256                 # records per batch of the reject stream
+CHUNK = 32                  # survivors a warp tests at a time
+
+
+def _block_bounds(cols: tuple, rows: tuple) -> tuple:
+    """Tile-local pixel-centre coordinates X = 2 lx + 1 of the first and
+    last column and row."""
+    return (2.0 * cols[0] + 1.0, 2.0 * cols[1] + 1.0,
+            2.0 * rows[0] + 1.0, 2.0 * rows[1] + 1.0)
+
+
+def _margin(a, b, c, x_hi, y_hi):
+    return ((a.abs() * x_hi + b.abs() * y_hi) + c.abs()) * REJECT_REL + REJECT_ABS
 
 
 def reject_block(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
                  cols: tuple, rows: tuple, mode: str) -> torch.Tensor:
-    """K1's reject test (raster_common.cuh reject_record, whose header
-    derives the margin): True where the record rec [..., >=12] of the
-    tile at x0/y0 (broadcastable against rec[..., 0]) can change nothing
-    on the tile-local pixel columns cols = (first, last) and rows = (first,
-    last) in the sample mode's own test (CENTER or COVERAGE), any depth
-    window ignored. Each plane's real value over the block is largest and
-    smallest at a corner; reject where an edge's maximum plus the margin
-    lies below the smallest value the mode accepts (0, or for COVERAGE a
+    """The reject stream's test (raster_common.cuh reject_record, whose
+    header derives the margin): True where the record rec [..., >=12] of
+    the tile at x0/y0 (broadcastable against rec[..., 0]) can change
+    nothing on the tile-local pixel columns cols = (first, last) and rows =
+    (first, last) in the sample mode's own test, any depth window ignored.
+    Each plane's real value over the block is largest and smallest at a
+    corner; reject where an edge's maximum plus the margin lies below the
+    smallest value the mode accepts (0, or for COVERAGE and SAMPLES4 a
     lower bound of every sample threshold), or the depth plane's range plus
-    the margin misses [0, inf) (CENTER) or [0, 1] (COVERAGE). In f64,
-    operation for operation as the kernel evaluates it."""
-    if mode not in (CENTER, COVERAGE):
-        raise ValueError(f"reject_block: no reject test for mode {mode}")
-    x_lo, x_hi = 2.0 * cols[0] + 1.0, 2.0 * cols[1] + 1.0
-    y_lo, y_hi = 2.0 * rows[0] + 1.0, 2.0 * rows[1] + 1.0
+    the margin misses [0, inf) (CENTER), [0, 1] (COVERAGE) or, at every
+    sample, [0, inf) (SAMPLES4). In f64, operation for operation as the
+    kernel evaluates it."""
+    if mode not in (CENTER, COVERAGE, SAMPLES4):
+        raise ValueError(f"reject_block: unknown mode {mode}")
+    x_lo, x_hi, y_lo, y_hi = _block_bounds(cols, rows)
     rej = None
     for p, planes in enumerate(plane_consts(rec, x0, y0)):
         a, b, c = (v.double() for v in planes)
         aa, ab = a.abs(), b.abs()
         vmax = (a * torch.where(a >= 0, x_hi, x_lo)
                 + b * torch.where(b >= 0, y_hi, y_lo)) + c
-        m = ((aa * x_hi + ab * y_hi) + c.abs()) * REJECT_REL + REJECT_ABS
+        m = _margin(a, b, c, x_hi, y_hi)
         top = vmax + m
-        if p < 3:
-            thr = (0.0 if mode == CENTER
-                   else -(((aa + ab) * 0.75) * REJECT_THR))
+        thr = (0.0 if mode == CENTER
+               else -(((aa + ab) * 0.75) * REJECT_THR))
+        if p < 3 or mode == SAMPLES4:
             r = top < thr
         else:
             r = top < 0.0
@@ -946,6 +943,27 @@ def reject_block(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
                 r = r | ((vmin - m) > 1.0)
         rej = r if rej is None else rej | r
     return rej
+
+
+def depth_floor_block(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                      cols: tuple, rows: tuple) -> torch.Tensor:
+    """The occlusion reject's floor (raster_common.cuh depth_floor): the
+    depth plane's smallest real value over the block's pixel centres, less
+    the margin, f64; every pixel's computed z there lies above it."""
+    x_lo, x_hi, y_lo, y_hi = _block_bounds(cols, rows)
+    a, b, c = (v.double() for v in plane_consts(rec, x0, y0)[3])
+    vmin = (a * torch.where(a >= 0, x_lo, x_hi)
+            + b * torch.where(b >= 0, y_lo, y_hi)) + c
+    return vmin - _margin(a, b, c, x_hi, y_hi)
+
+
+def depth_reject_block(rec: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                       cols: tuple, rows: tuple,
+                       carry: torch.Tensor) -> torch.Tensor:
+    """K2's occlusion reject (center mode): True where the record cannot
+    pass the strict z < depth anywhere in the block whose largest current
+    depth carry is `carry` (broadcastable): its floor is at or above it."""
+    return depth_floor_block(rec, x0, y0, cols, rows) >= carry.double()
 
 
 def record_covers(mode: str, rec: torch.Tensor, b0, b1, b2, z) -> torch.Tensor:
@@ -1023,32 +1041,98 @@ def covered_block_pairs(binned: BinnedTriangles, width: int, height: int,
     return total
 
 
+def won_block_pairs(tri_id: torch.Tensor) -> int:
+    """The distinct (tri_id, BLOCK_W x BLOCK_H pixel block) pairs among the
+    pixels a visibility output tri_id [H, W] gives a winner (>= 0): each
+    winner is evaluated at least on a block it wins in. K2's bound since
+    its occlusion reject, which skips covered but hidden pairs."""
+    h, w = tri_id.shape
+    dev = tri_id.device
+    by = torch.arange(h, device=dev)[:, None] // BLOCK_H
+    bx = torch.arange(w, device=dev)[None, :] // BLOCK_W
+    block = (by * cdiv(w, BLOCK_W) + bx).expand(h, w)
+    won = tri_id >= 0
+    ids = tri_id[won].long()
+    key = block[won] * (int(ids.max()) + 1 if ids.numel() else 1) + ids
+    return int(torch.unique(key).numel())
+
+
 def footprints() -> list:
-    """K1's warp footprints: ((first, last) column, (first, last) row) of
+    """The warp footprints: ((first, last) column, (first, last) row) of
     warp w = 0..7, as raster_common.cuh assigns its threads' pixels."""
     return [((c, c + FOOT_W - 1), (r, r + FOOT_H - 1))
             for r in range(0, TILE_H, FOOT_H) for c in range(0, TILE_W, FOOT_W)]
 
 
-def reject_stream_counts(binned: BinnedTriangles, mode: str) -> dict:
-    """What K1's reject stream evaluates on these inputs, by the plain
-    mirror of its test (the kernel counts nothing): "streamed" records
+def reject_stream_counts(binned: BinnedTriangles, mode: str,
+                         occlusion: bool = False) -> dict:
+    """What the reject stream evaluates on these inputs, by the plain
+    mirror of its tests (the kernels count nothing): "streamed" records
     (every record of every group the tiles stream), "tile_survivors"
     (those the tile-level test keeps, (a)) and "footprint_pairs" (the
-    (survivor, warp footprint) pairs the per-warp test keeps, (b); each
-    costs the warp 256 pixel evaluations)."""
-    streamed = survivors = pairs = 0
+    (survivor, warp footprint) pairs the per-warp footprint test keeps,
+    (b)). With occlusion (K2's center mode) also "occluded": those of
+    them that the occlusion reject drops, under the kernel's own depth
+    carries: per tile, batches of BATCH records, each batch's survivors
+    in stream order CHUNK at a time, each CHUNK tested against the
+    footprint's largest carry before any of it is evaluated. Each kept
+    pair costs the warp 256 pixel evaluations."""
+    if occlusion and mode != CENTER:
+        raise ValueError("the occlusion reject exists in CENTER mode only")
+    dev = binned.pairs.device
+    nt = binned.tiles_x * binned.tiles_y
+    groups = torch.cat([binned.gpairs[:, :12], binned.pairs[:, :12]]
+                       ).view(-1, GROUP, 12)
+    seq, s_max = _group_sequences(binned)
+    per = BATCH // GROUP
+    nb = cdiv(s_max, per)
+    seq = torch.nn.functional.pad(seq, (0, nb * per - s_max), value=-1)
+    xs = 2.0 * torch.arange(TILE_W, device=dev, dtype=torch.float32) + 1.0
+    ys = 2.0 * torch.arange(TILE_H, device=dev, dtype=torch.float32) + 1.0
     whole = ((0, TILE_W - 1), (0, TILE_H - 1))
-    for x0, y0, rec, live in streamed_groups(binned):
-        x0, y0 = x0[:, None], y0[:, None]
-        kept = live[:, None] & ~reject_block(rec, x0, y0, *whole, mode)
-        streamed += int(live.sum()) * GROUP
-        survivors += int(kept.sum())
-        for cols, rows in footprints():
-            pairs += int((kept & ~reject_block(rec, x0, y0, cols, rows, mode)
-                          ).sum())
-    return {"streamed": streamed, "tile_survivors": survivors,
-            "footprint_pairs": pairs}
+    feet = footprints()
+    out = {"streamed": 0, "tile_survivors": 0, "footprint_pairs": 0}
+    if occlusion:
+        out["occluded"] = 0
+    chunk = 64 if dev.type == "cuda" else 16
+    for c0 in range(0, nt, chunk):
+        tiles = torch.arange(c0, min(c0 + chunk, nt), device=dev)
+        nc = tiles.shape[0]
+        x0 = ((tiles % binned.tiles_x) * TILE_W).to(torch.float32)[:, None]
+        y0 = ((tiles // binned.tiles_x) * TILE_H).to(torch.float32)[:, None]
+        carry = torch.ones((nc, NPX), device=dev)
+        for b in range(nb):
+            g = seq[tiles, b * per:(b + 1) * per]
+            rec = groups[g.clamp(min=0)].reshape(nc, BATCH, 12)
+            live = (g >= 0).repeat_interleave(GROUP, dim=1)
+            kept = live & ~reject_block(rec, x0, y0, *whole, mode)
+            out["streamed"] += int(live.sum())
+            out["tile_survivors"] += int(kept.sum())
+            if not occlusion:
+                for cols, rows in feet:
+                    out["footprint_pairs"] += int(
+                        (kept & ~reject_block(rec, x0, y0, cols, rows, mode)).sum())
+                continue
+            # the survivors in stream order, CHUNK at a time
+            order = torch.sort((~kept).to(torch.uint8), dim=1, stable=True).indices
+            srec = rec.gather(1, order[..., None].expand(-1, -1, 12))
+            skept = kept.gather(1, order)
+            for q in range(cdiv(int(kept.sum(dim=1).max()), CHUNK)):
+                r = srec[:, q * CHUNK:(q + 1) * CHUNK]
+                k = skept[:, q * CHUNK:(q + 1) * CHUNK]
+                far = carry.view(nc, TILE_H // FOOT_H, FOOT_H, TILE_W // FOOT_W,
+                                 FOOT_W).amax(dim=(2, 4)).reshape(nc, -1)
+                for f, (cols, rows) in enumerate(feet):
+                    fk = k & ~reject_block(r, x0, y0, cols, rows, mode)
+                    occ = fk & depth_reject_block(r, x0, y0, cols, rows,
+                                                  far[:, f:f + 1])
+                    out["footprint_pairs"] += int(fk.sum())
+                    out["occluded"] += int(occ.sum())
+                planes = _plane_eval_split(r, x0[:, 0], y0[:, 0], xs, ys)
+                cov = record_covers(CENTER, r, *planes) & k[..., None]
+                z = torch.where(cov, planes[3], torch.full_like(planes[3], 2.0))
+                carry = torch.minimum(carry, z.amin(dim=1))
+    return out
 
 
 # ===========================================================================

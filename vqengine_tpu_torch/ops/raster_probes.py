@@ -612,3 +612,129 @@ def reject_probe(seed: int = 0, device: torch.device | str = "cpu"):
     zlo = torch.where(u[0] < 0.5, -1.0, 0.1).float().to(dev)
     zhi = torch.where(u[1] < 0.5, 2.0, 0.9).float().to(dev)
     return binned, (zlo, zhi), info
+
+
+def vis_records(binned: raster.BinnedTriangles) -> raster.BinnedTriangles:
+    """K1's 32-row records cut to K2's 16 rows (the 12 plane floats and the
+    id lead both layouts), the rest of the binning as it is."""
+    return raster.BinnedTriangles(**{
+        **{f: getattr(binned, f) for f in binned.__dataclass_fields__},
+        "pairs": binned.pairs[:, :raster.PAIR_ROWS].contiguous(),
+        "gpairs": binned.gpairs[:, :raster.PAIR_ROWS].contiguous()})
+
+
+# ---------------------------------------------------------------------------
+# K2's occlusion reject: records stacked on a footprint's depth
+# ---------------------------------------------------------------------------
+
+DEPTH_TILES_X = 2
+DEPTH_W = DEPTH_TILES_X * raster.TILE_W - 5           # ragged, like a frame
+DEPTH_H = raster.TILE_H - 1
+DEPTH_Z = 0.5                 # the occluder's depth, exact in the split
+DEPTH_M = DEPTH_Z * raster.REJECT_REL   # the margin of a flat plane there
+
+
+def _flat(z: float) -> tuple:
+    return (0.0, 0.0, z)
+
+
+def depth_reject_probe(device: torch.device | str = "cpu"):
+    """Crafted 16-row records on and around the occlusion reject's margin
+    -> (BinnedTriangles of DEPTH_W x DEPTH_H pixels (2 tiles), info).
+
+    Tile 0 streams an occluder covering columns 0-63 at z = 0.5 (alone in
+    the stream's first batch of raster.BATCH records, the rest killed, so
+    that its depths are in place before the next batch is tested), then,
+    in the next batch,
+    records over the same columns at z = 0.5 (a tie), one f32 ulp above
+    it, M / 2 above it (inside the margin M of a flat plane there) and 2M
+    above it, the last one over the whole tile: hidden in footprints 0, 1,
+    4 and 5 and visible in the others; then a record one ulp below 0.5 on
+    columns 8-15 (it wins there), two sloped records over footprint 1
+    whose depth at its corner pixel (32, 0) is the float just below 0.5
+    (it wins that pixel alone) and 0.5 itself (a tie there), and a record
+    at 1 - 2^-24 over the whole tile, hidden everywhere. Tile 1 has no
+    occluder, so its carries are the cleared 1.0: a record at 1 + 4M over
+    the tile (hidden), one at z = 1 (never below the carry), one at
+    1 - 2^-24 on columns 0-63 and one at 1 - M on columns 64-127 (both
+    win), and one with a NaN depth plane (never rejected, never wins).
+    Every flat depth is exact in the kernels' split arithmetic.
+
+    info: "rows" {name: row}; "winners" {name: pixel count it must win};
+    "occluded": the (record, footprint) pairs the mirror's occlusion
+    reject drops (raster.reject_stream_counts)."""
+    g = raster.GROUP
+    rows = raster.PAIR_ROWS
+    killed = raster.killed_record(rows, torch.device("cpu")).numpy()
+    tw = float(raster.TILE_W)
+    whole = [(0.0, 0.0, 1.0)] * 3
+
+    def cols(lo: float, hi: float) -> list:
+        # pixel centres lo + 0.5 .. hi - 0.5 of the frame's columns
+        return [(1.0, 0.0, -lo), (-1.0, 0.0, hi), (0.0, 0.0, 1.0)]
+
+    ulp_below = float(np.nextafter(np.float32(DEPTH_Z), np.float32(0)))
+    ulp_above = float(np.nextafter(np.float32(DEPTH_Z), np.float32(1)))
+    one_below = float(np.nextafter(np.float32(1.0), np.float32(0)))
+    m1 = raster.REJECT_REL    # the margin of a flat plane at z = 1
+    # sloped over footprint 1, rising away from its corner pixel (32, 0):
+    # slopes exact in bf16, whose products there add up to 2^-5 exactly,
+    # and a constant whose bf16 hi part is 0.5 - 2^-5; the lo part then
+    # sets the corner's depth to the float: 0.5 - 2^-25 or 0.5
+    a, b = 2.0 ** -11, 63 * 2.0 ** -11
+    c_tie = DEPTH_Z - 2.0 ** -5
+    tile0 = [
+        ("occluder", cols(0, 64), _flat(DEPTH_Z)),
+        ("tie", cols(0, 64), _flat(DEPTH_Z)),
+        ("ulp_above", cols(0, 64), _flat(ulp_above)),
+        ("inside_margin", cols(0, 64), _flat(DEPTH_Z + DEPTH_M / 2)),
+        ("beyond_margin", whole, _flat(DEPTH_Z + 2 * DEPTH_M)),
+        ("ulp_below", cols(8, 16), _flat(ulp_below)),
+        ("sloped_below", cols(32, 64), (a, b, c_tie - 2.0 ** -25)),
+        ("sloped_tie", cols(32, 64), (a, b, c_tie)),
+        ("hidden", whole, _flat(one_below)),
+    ]
+    tile1 = [
+        ("clear_beyond", whole, _flat(1.0 + 4 * m1)),
+        ("clear_tie", whole, _flat(1.0)),
+        ("clear_ulp_below", cols(tw, tw + 64), _flat(one_below)),
+        ("clear_inside", cols(tw + 64, 2 * tw), _flat(1.0 - m1)),
+        ("nan", whole, _flat(float("nan"))),
+    ]
+    pairs = np.tile(killed, (4 * g, 1))
+    info = {"rows": {}}
+    row = 0
+    starts = [0]
+    for t, recs in enumerate((tile0, tile1)):
+        for k, (name, edges, plane) in enumerate(recs):
+            pairs[row, 0:9] = np.asarray(edges, np.float32).reshape(-1)
+            pairs[row, 9:12] = plane
+            pairs[row, 12] = row
+            info["rows"][name] = row
+            # tile 0's occluder alone in its batch of 2 groups
+            row = row + 1 if (t or k) else 2 * g
+        if t == 0:
+            row = max(row, 3 * g)
+            starts.append(row)
+    starts.append(row)
+    # pixels each record wins (frame columns < DEPTH_W, rows < DEPTH_H)
+    h = DEPTH_H
+    info["winners"] = {
+        "occluder": 64 * h - 8 * h - 1, "beyond_margin": 64 * h,
+        "ulp_below": 8 * h, "sloped_below": 1,
+        "clear_ulp_below": 64 * h, "clear_inside": (DEPTH_W - 192) * h}
+    info["occluded"] = {"beyond_margin": (0, 1, 4, 5), "hidden": (0, 1, 4, 5),
+                        "sloped_below": (5,), "sloped_tie": (5,),
+                        "clear_beyond": tuple(range(8))}
+    dev = torch.device(device)
+    i32 = dict(dtype=torch.int32, device=dev)
+    binned = raster.BinnedTriangles(
+        pairs=torch.from_numpy(pairs).to(dev),
+        starts=torch.tensor(starts, **i32),
+        rstarts=torch.full((2,), 4 * g, **i32),
+        gpairs=torch.from_numpy(np.tile(killed, (raster.GLOBAL_CAP, 1))).to(dev),
+        gmeta=torch.tensor([0, DEPTH_TILES_X], **i32),
+        overflow=torch.zeros(3, **i32),
+        demand=torch.tensor(len(tile0) + len(tile1), **i32),
+        tiles_x=DEPTH_TILES_X, tiles_y=1, pair_cap=4 * g)
+    return binned, info

@@ -53,7 +53,22 @@ the final line:
      kernel's own carries); then its MSAA variant on the directional and
      the spot view (per-sample stacks bitwise), timed, with its reject
      stream's counts;
-  7. HelloTriangle/HelloCube (and HelloCube with MSAA) at 192x108 on the
+  7. the environment: Sponza's ProceduralSky (decoded on the host, a
+     512x256 equirect) built on the card at the engine's default sizes
+     (diffuse cube 64, specular mips from 128 in 6 levels, a 256^2 LUT of
+     512 samples): build ms by CUDA events to a sync, cold (the LUT
+     computed on the card) and warm (the LUT cached), the build's peak
+     device memory, and the tables against the CPU's build of the same
+     equirect (graph.environment_differences: bf16 tables within one bf16
+     ulp on at most 1% of entries, SH9/LUT/fit within their normwise
+     bars); then frames lit by it at 192x108 with the CPU's tables carried
+     to the card, against the CPU: EnvironmentMapUnitTest without MSAA
+     and with the "shade" edge resolve, and the translucent Sponza
+     (engine default, transparent pass lit too), tri_id equal and ldr
+     within ENTRY_TOL;
+  8. HelloTriangle/HelloCube (and HelloCube with MSAA), and the Default
+     scene's goldens (default_scene, default_pcf) and envmap_unit_test, each
+     with its environment built at load, at 192x108 on the
      card against the goldens (the bars of
      vqengine_tpu_torch/engine/goldens.py), the entry() frame on the card
      against the same frame on the CPU, a shadowed Sponza frame (192x108,
@@ -62,19 +77,24 @@ the final line:
      against the CPU in both edge-resolve modes, and the translucent Sponza
      frame (the same, with its transparent pass) on the card against the
      CPU;
-  8. main paths, Sponza 1920x1080, each with the kernel launch counts set
-     to 0 just before it and read just after: (a) the shadowed path
+  9. main paths, Sponza 1920x1080 lit by its environment (the maps built
+     at load) with the skydome behind it, each with the kernel launch
+     counts set to 0 just before it and read just after: (a) the shadowed path
      without MSAA: precompute_shadow_maps (ESM, full budget; timed), then
      16 frames of a yaw sweep with the cached maps; (b) 4 frames rendering
      the maps in the frame (dynamic casters); (c) 4 PCF frames with cached
      PCF maps; (d) 8 frames with shadows off (the first slice's path);
      (e) the engine's default frame: the precompute, then 16 frames with
      MSAA 4x and the neighbor edge resolve (edge saturation per frame),
-     and 4 frames with the "shade" edge resolve; (f) the translucent Sponza
+     the same 16 frames without the environment (env=None: the clear
+     color behind, no environment term), and 4 frames with the "shade"
+     edge resolve; (f) the translucent Sponza
      on its own renderer: the precompute, 16 engine-default frames and 4
      without MSAA, each with the two-layer transparent pass (2 K1-bounded
      launches per frame), the layers' pixel counts of the first frame.
      Overflow 0 and finite output; ms/frame, peak memory, launches.
+`--profile` adds stage rows (among them the environment term, the
+skydome and the environment build) and traces the default frame.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -282,7 +302,9 @@ def load_sponza(dev, translucent: bool = False):
     scene = load_scene("Sponza", W, H,
                        material_alpha=SPONZA_TRANSLUCENT if translucent else None)
     r = VQRendererTorch(dev)
-    r.load_scene(scene.buffers)
+    r.load_scene(scene.buffers, equirect=scene.equirect)
+    if r.env is None:
+        fail("Sponza's environment was not built at load")
     if (r.scene_t is not None) != translucent:
         fail(f"Sponza (translucent {translucent}) has transparent part "
              f"{r.scene_t is not None}")
@@ -799,6 +821,89 @@ def phase_vis_msaa4(renderer, consts, views) -> dict:
             "library_ms": None}
 
 
+def phase_environment(dev, card: str, sponza):
+    """Sponza's ProceduralSky built on the card at the engine's default
+    sizes: ms by CUDA events to a sync (cold: the BRDF LUT computed on the
+    card; warm: the LUT cached, as at every later scene load), the peak
+    device memory above what was allocated before the build, and the
+    tables against the CPU's build of the same equirect; fails above the
+    bars. -> the CPU's build (the tables the card-vs-CPU frames carry)."""
+    from vqengine_tpu_torch.ops import ibl
+    from vqengine_tpu_torch.render import graph
+    eq = sponza.equirect
+    builds = []
+    for label in ("cold, the LUT computed on the card", "warm, the LUT cached"):
+        if label.startswith("cold"):
+            ibl._BRDF_LUT_CACHE.clear()
+            ibl._BRDF_POLY_CACHE.clear()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        env = graph.build_environment(eq, dev)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        builds.append((label, start.elapsed_time(end), host_ms, peak))
+    for label, ms, host_ms, peak in builds:
+        say(f"[env] build_environment, Sponza's sky {eq.shape[1]}x{eq.shape[0]} "
+            f"(diffuse 64, specular 128 x 6 mips, LUT 256^2 x 512 samples), "
+            f"{label}: {ms:.3f} ms by CUDA events ({host_ms:.3f} ms host "
+            f"clock to the sync), peak device memory {peak:.1f} MiB above the "
+            f"scene's, on {card}")
+    t0 = time.perf_counter()
+    cpu = graph.build_environment(eq, torch.device("cpu"))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    d = graph.environment_differences(env, cpu)
+    say(f"[env] the card's tables against the CPU's build ({cpu_ms:.0f} ms on "
+        f"the host's {torch.get_num_threads()} threads): bf16 (entries "
+        f"differing, largest bf16 ulps, entries) and f32 normwise relative "
+        f"error: { {k: v for k, v in d.items() if k != 'ok'} }; bars: "
+        f"{graph.ENV_BF16_MAX_ULPS} ulp on at most "
+        f"{graph.ENV_BF16_MAX_SHARE:.0%} of entries, {graph.ENV_F32_MAX_REL}")
+    if not d["ok"] or d["equirect"][0]:
+        fail(f"the card's environment tables are outside the bars: {d}")
+    return cpu
+
+
+def phase_env_card_vs_cpu(dev, env_cpu) -> None:
+    """Frames lit by the environment at 192x108, on the card and on the
+    CPU with the same tables (the CPU's build carried to the card):
+    EnvironmentMapUnitTest without MSAA and with the "shade" edge resolve,
+    and the translucent Sponza (engine default, cached 64^2 ESM maps, its
+    transparent pass lit too): tri_id equal, ldr within ENTRY_TOL."""
+    from vqengine_tpu_torch.engine.scene_load import (SPONZA_TRANSLUCENT,
+                                                      load_scene)
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    frames = [("EnvironmentMapUnitTest", None, {}),
+              ("EnvironmentMapUnitTest", None,
+               dict(msaa=True, msaa_edge_resolve="shade")),
+              ("Sponza", SPONZA_TRANSLUCENT, dict(msaa=True))]
+    for name, alpha, flags in frames:
+        s = load_scene(name, SMALL_W, SMALL_H, material_alpha=alpha)
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            r = VQRendererTorch(d)
+            r.load_scene(s.buffers)
+            c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+            maps = r.precompute_shadow_maps(c, SMALL_DIMS)
+            out = r.render(c, SMALL_W, SMALL_H, shadow_dims=SMALL_DIMS,
+                           shadow_maps=maps, env=env_cpu.to(d), **flags)
+            outs.append({k: out[k].cpu() for k in ("ldr", "tri_id")})
+        same = int((outs[0]["tri_id"] == outs[1]["tri_id"]).sum())
+        diff = float((outs[0]["ldr"] - outs[1]["ldr"]).abs().max())
+        label = f"{name}{' (translucent)' if alpha else ''} {flags or 'no MSAA'}"
+        say(f"[env] {label} {SMALL_W}x{SMALL_H}, lit by the environment (the "
+            f"CPU's tables on both), card vs CPU: tri_id equal on "
+            f"{same}/{SMALL_W * SMALL_H} pixels, max |ldr diff| {diff}")
+        if same != SMALL_W * SMALL_H or not diff <= ENTRY_TOL:
+            fail(f"{label} card vs CPU: {same} equal ids, ldr diff {diff}")
+
+
 def phase_goldens(dev) -> None:
     from vqengine_tpu_torch.engine.goldens import (SCENES, golden_scores,
                                                     render_golden)
@@ -979,9 +1084,10 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
     say(f"[main] Sponza {W}x{H}: {n_tris} triangles, "
         f"{len(sponza.buffers.items)} items, "
         f"{int(sponza.buffers.item_num_lods.max())} LODs, camera "
-        f"{cam.position.tolist()}; the scene wants an environment "
-        f"({sponza.wants_environment}; IBL/sky are not ported yet, so frames "
-        f"render without one) and has shadow casters "
+        f"{cam.position.tolist()}; its environment (a "
+        f"{sponza.equirect.shape[1]}x{sponza.equirect.shape[0]} sky, maps "
+        f"built at load) lights every frame below and is the background, "
+        f"unless a row says otherwise; shadow casters "
         f"({sponza.has_shadow_casters})")
     if sponza.wants_textures:
         fail("Sponza wants textures, which are not ported yet")
@@ -998,6 +1104,7 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
         renderer.render(c, W, H)
         renderer.render(c, W, H, enable_shadows=False)
         renderer.render(c, W, H, shadow_maps=maps, msaa=True)
+        renderer.render(c, W, H, shadow_maps=maps, msaa=True, env=None)
         renderer.render(c, W, H, shadow_maps=maps, msaa=True,
                         msaa_edge_resolve="shade")
     torch.cuda.synchronize()
@@ -1040,7 +1147,8 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
     maps_e, _, pre_e = precompute(renderer, consts[0], card, "esm")
     msaa = run_frames(renderer, consts, card,
                       "engine default: MSAA 4x, neighbor edge resolve, cached "
-                      "ESM maps", shadow_maps=maps_e, msaa=True)
+                      "ESM maps, environment and skydome", shadow_maps=maps_e,
+                      msaa=True)
     peak_e = torch.cuda.max_memory_allocated() / 2 ** 20
     launches_e = {k: pre_e[k] + msaa[k] for k in msaa}
     say(f"[main] engine default path (precompute + {N_FRAMES} MSAA frames): "
@@ -1048,6 +1156,12 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
     if (msaa["raster_gbuf_msaa"] != N_FRAMES or msaa["raster_gbuf"]
             or msaa["raster_vis"] or msaa["palette"] <= 0):
         fail(f"MSAA frames launched {msaa}")
+    bare = run_frames(renderer, consts, card,
+                      "engine default without the environment (env=None: "
+                      "clear color, no environment term)", shadow_maps=maps_e,
+                      msaa=True, env=None)
+    if bare != msaa:
+        fail(f"frames without the environment launched {bare}, with it {msaa}")
     shade = run_frames(renderer, side, card,
                        "MSAA 4x, shade edge resolve, cached ESM maps",
                        shadow_maps=maps_e, msaa=True, msaa_edge_resolve="shade")
@@ -1089,13 +1203,13 @@ def phase_transparent_path(card: str, st, rt) -> dict:
     torch.cuda.reset_peak_memory_stats()
     maps, _, pre = precompute(rt, consts[0], card, "esm")
     msaa = run_frames(rt, consts, card, "(f) translucent Sponza, engine "
-                      "default (MSAA, neighbor, cached ESM maps) + 2-layer "
-                      "transparent pass", shadow_maps=maps, msaa=True)
+                      "default (MSAA, neighbor, cached ESM maps, environment) "
+                      "+ 2-layer transparent pass", shadow_maps=maps, msaa=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     side = consts[:N_SIDE_FRAMES]
     plain = run_frames(rt, side, card, "(f) translucent Sponza, no MSAA, "
-                       "cached ESM maps + 2-layer transparent pass",
-                       shadow_maps=maps)
+                       "cached ESM maps, environment + 2-layer transparent "
+                       "pass", shadow_maps=maps)
     n, m = len(consts), len(side)
     say(f"[main] (f) launches per frame: engine default "
         f"{ {k: v / n for k, v in msaa.items()} }, no MSAA "
@@ -1139,8 +1253,10 @@ def idle_share(trace: dict, window_name: str) -> tuple[float, float, dict]:
 
 def phase_profile(sponza, renderer) -> None:
     """Where a shadowed Sponza frame's time goes: CUDA-event time of each
-    stage (host syncs included) of the cached-map frame without MSAA and of
-    the MSAA stages of the engine's default frame, and the card's busy and
+    stage (host syncs included) of the cached-map frame without MSAA (the
+    environment term and the skydome among them, and the environment
+    build, a load-time cost) and of the MSAA stages of the engine's
+    default frame, and the card's busy and
     idle time from a torch.profiler trace of PROFILE_FRAMES default frames
     (MSAA, neighbor edge resolve, cached maps), written to
     traces/sponza_trace.json."""
@@ -1157,7 +1273,9 @@ def phase_profile(sponza, renderer) -> None:
     _, _, attrs, _, _ = graph.geometry_pass(scene, c, W, H)
     wn = attrs["wnrm"]
     n = wn / torch.clamp(shadow.norm3(wn), min=1e-9)[..., None]
-    whole = "whole frame (cached maps)"
+    mat = graph.material_pass(n, attrs["mrow"], attrs["ids"])
+    env = renderer.env
+    whole = "whole frame (cached maps, environment)"
     stages = {
         "front end (cull, LOD, transform, setup, attribute pack)":
             lambda: graph.geometry_setup_gbuf(scene, c, W, H),
@@ -1167,6 +1285,11 @@ def phase_profile(sponza, renderer) -> None:
         "shadow pass (ESM tests)":
             lambda: graph.shadow_pass(scene, c, attrs["wpos"], n,
                                       shadow_maps=maps),
+        "environment term (ibl.environment_illumination: SH9, one specular "
+        "pyramid gather, Chebyshev split-sum)":
+            lambda: graph.environment_term(c, env, attrs["wpos"], n, mat),
+        "skydome (sky_background: quarter-res bilinear taps, 4x upsample)":
+            lambda: graph.sky_background(c, env, W, H),
         whole: lambda: renderer.render(c, W, H, shadow_maps=maps),
     }
     t = {name: time_ms(fn, 10) for name, fn in stages.items()}
@@ -1174,7 +1297,15 @@ def phase_profile(sponza, renderer) -> None:
     for name, v in t.items():
         say(f"[profile] stage {v:8.3f} ms  {name}")
     say(f"[profile] stage {rest:8.3f} ms  tail (G-buffer unpack, K3 material "
-        f"fetch, shading, tonemap)")
+        f"fetch, direct-light shading, composite, tonemap)")
+    bare = time_ms(lambda: renderer.render(c, W, H, shadow_maps=maps,
+                                           env=None), 10)
+    say(f"[profile] stage {bare:8.3f} ms  whole frame (cached maps) without "
+        f"the environment")
+    build = time_ms(lambda: graph.build_environment(sponza.equirect,
+                                                    c.world.device), 3, warmup=1)
+    say(f"[profile] stage {build:8.3f} ms  environment build "
+        f"(build_environment, LUT and fit cached; load time)")
     phase_profile_shadow(scene, c)
 
     # the MSAA stages of the engine's default frame
@@ -1307,7 +1438,7 @@ def phase_profile_transparent(st, rt) -> None:
     l1 = raster.rasterize_gbuf(tb, W, H, zbound=w1)
     w2 = (l1[0], opaque)
     l2 = raster.rasterize_gbuf(tb, W, H, zbound=w2)
-    layers = [graph.shade_transparent_layer(rt.scene_t, c, *g, W, H)
+    layers = [graph.shade_transparent_layer(rt.scene_t, c, *g, W, H, env=rt.env)
               for g in (l1, l2)]
     hdr = torch.rand((H, W, 3), device=opaque.device)
     stages = {
@@ -1319,14 +1450,16 @@ def phase_profile_transparent(st, rt) -> None:
             lambda: raster.rasterize_gbuf(tb, W, H, zbound=w1),
         "K1-bounded raster_gbuf_bounded, layer 2":
             lambda: raster.rasterize_gbuf(tb, W, H, zbound=w2),
-        "shading, layer 1 (G-buffer unpack, K3 material fetch, lights)":
-            lambda: graph.shade_transparent_layer(rt.scene_t, c, *l1, W, H),
+        "shading, layer 1 (G-buffer unpack, K3 material fetch, environment, "
+        "lights)": lambda: graph.shade_transparent_layer(
+            rt.scene_t, c, *l1, W, H, env=rt.env),
         "shading, layer 2": lambda: graph.shade_transparent_layer(
-            rt.scene_t, c, *l2, W, H),
+            rt.scene_t, c, *l2, W, H, env=rt.env),
         "blend (2 layers, back to front)":
             lambda: graph.blend_layers(hdr, layers),
         "whole transparent pass":
-            lambda: graph.transparent_pass(rt.scene_t, c, hdr, opaque, W, H),
+            lambda: graph.transparent_pass(rt.scene_t, c, hdr, opaque, W, H,
+                                           env=rt.env),
         "whole frame (translucent Sponza, engine default + transparent pass)":
             lambda: rt.render(c, W, H, shadow_maps=maps, msaa=True),
     }
@@ -1353,6 +1486,8 @@ def main() -> None:
                                                        st, rt)
     phase_reject_probe(dev)
     k2, k2_msaa4 = phase_vis(dev, sponza, renderer)
+    env_cpu = phase_environment(dev, card, sponza)
+    phase_env_card_vs_cpu(dev, env_cpu)
     phase_goldens(dev)
     phase_shadow_card_vs_cpu(dev)
     phase_msaa_card_vs_cpu(dev)

@@ -442,3 +442,51 @@ def test_raster_gbuf_kernel_reject_probe(cuda, msaa, bounded):
     reach = sum(int(((out[1] == row) & (tile == t)).sum())
                 for row, _, t in info["reach"])
     assert bounded or reach > 0
+
+
+@pytest.fixture(scope="module")
+def env_cpu():
+    """Sponza's environment (its ProceduralSky, decoded on the host) built
+    on the CPU at the engine's default sizes."""
+    s = load_scene("Sponza", 64, 32)
+    return s.equirect, graph.build_environment(s.equirect, torch.device("cpu"))
+
+
+def test_environment_build_on_card_matches_cpu(cuda, env_cpu):
+    """build_environment on the card against the CPU's build of the same
+    equirect (graph.environment_differences): bf16 tables within one bf16
+    ulp on at most 1% of entries, the f32 tables within their normwise
+    bars; the equirect itself bitwise."""
+    equirect, ref = env_cpu
+    env = graph.build_environment(equirect, cuda)
+    assert env.equirect.is_cuda and env.specular_mips[1].is_cuda
+    d = graph.environment_differences(env, ref)
+    assert d["ok"], d
+    assert d["equirect"][0] == 0
+
+
+ENV_FRAMES = {"envmap": ("EnvironmentMapUnitTest", None, {}),
+              "envmap_msaa_shade": ("EnvironmentMapUnitTest", None,
+                                    dict(msaa=True, msaa_edge_resolve="shade")),
+              "translucent_sponza": ("Sponza", SPONZA_TRANSLUCENT,
+                                     dict(msaa=True, shadow_dims=(64, 64, 64)))}
+
+
+@pytest.mark.parametrize("frame", sorted(ENV_FRAMES))
+def test_env_frame_on_card_matches_cpu(cuda, env_cpu, frame):
+    """Frames lit by the environment at 192x108, the CPU's tables carried
+    to the card (EnvironmentMaps.to): EnvironmentMapUnitTest without MSAA
+    and with the "shade" edge resolve, and the translucent Sponza (engine
+    default, its transparent pass lit too): tri_id equal, ldr within
+    3e-4 of the CPU."""
+    name, alpha, flags = ENV_FRAMES[frame]
+    s = load_scene(name, 192, 108, material_alpha=alpha)
+    outs = []
+    for d in (cuda, torch.device("cpu")):
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+        outs.append(r.render(c, 192, 108, env=env_cpu[1].to(d), **flags))
+    out, ref = outs
+    assert torch.equal(out["tri_id"].cpu(), ref["tri_id"])
+    assert float((out["ldr"].cpu() - ref["ldr"]).abs().max()) <= 3e-4

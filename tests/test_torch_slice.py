@@ -33,6 +33,7 @@ from vqengine_tpu.scene.serialization import (parse_material_file,
 from vqengine_tpu_torch.engine.goldens import golden_scores, render_golden
 from vqengine_tpu_torch.engine.scene_load import find_data_dirs, load_scene
 from vqengine_tpu_torch.entry import WIDTH, HEIGHT, entry, tiny_scene_numpy
+from vqengine_tpu_torch.ops.ibl import procedural_sky_equirect
 from vqengine_tpu_torch.render import graph as tg
 from vqengine_tpu_torch.render.renderer import (VQRendererTorch,
                                                 frame_constants_numpy)
@@ -253,14 +254,28 @@ def entry_cpu():
     dict(cas_sharpness=0.5),
     dict(out_width=2 * WIDTH, out_height=2 * HEIGHT)])
 def test_unported_features_raise(entry_cpu, kw):
-    """Features of later slices raise. Two cases, ported since, now hold
+    """Features of later slices raise. Three cases, ported since, now hold
     the reference's behaviour instead: enable_alpha_mask without textures
     renders the frame without it (the reference's alpha_test needs
     textures); the entry scene as its own transparent part renders the
     opaque frame unchanged (every transparent fragment lies exactly on
     the opaque depth, and the peel's window is open: coplanar transparent
-    fragments drop, as in the reference)."""
+    fragments drop, as in the reference); an environment (a small
+    procedural sky's maps) lights the frame and puts the skydome behind
+    it (tests/test_torch_ibl.py holds it against the reference)."""
     scene, consts = entry_cpu
+    if "env" in kw:
+        env = tg.build_environment(procedural_sky_equirect(32, 16), CPU,
+                                   diffuse_size=4, specular_base=8,
+                                   lut_size=16)
+        base = tg.render_forward(scene, consts, WIDTH, HEIGHT)
+        out = tg.render_forward(scene, consts, WIDTH, HEIGHT, env=env)
+        bg = out["tri_id"] < 0
+        assert bool(torch.isfinite(out["ldr"]).all()) and bool(bg.any())
+        assert torch.equal(out["tri_id"], base["tri_id"])
+        assert not torch.equal(out["ldr"][~bg], base["ldr"][~bg])
+        assert not torch.equal(out["ldr"][bg], base["ldr"][bg])
+        return
     if "enable_alpha_mask" in kw or "scene_transparent" in kw:
         if "scene_transparent" in kw:
             kw = dict(scene_transparent=scene)

@@ -44,6 +44,7 @@ from vqengine_tpu.scene import mesh as jmesh
 from vqengine_tpu.utils import math3d as jm3
 from vqengine_tpu_torch.ops import raster as tr
 from vqengine_tpu_torch.ops import raster_probes
+from vqengine_tpu_torch.ops.ibl import procedural_sky_equirect
 from vqengine_tpu_torch.render import graph as tg
 from vqengine_tpu_torch.render import scene_buffers as tsb
 from vqengine_tpu_torch.render.renderer import (VQRendererTorch,
@@ -438,9 +439,24 @@ def test_blend_over_opaque():
 @pytest.mark.parametrize("kw", [dict(env=object()), dict(textures=object()),
                                 dict(full_height=2 * H), dict(y_offset=H)])
 def test_transparent_pass_unported_raise(kw):
-    """The environment term, textures and multichip bands of the
-    reference's transparent_pass are later slices: they raise."""
+    """Textures and multichip bands of the reference's transparent_pass
+    are later slices: they raise. The environment term is ported (IBL):
+    with a small procedural sky's maps the layers are lit by it, so the
+    pass changes the glass's pixels and no others
+    (tests/test_torch_ibl.py holds it against the reference)."""
     _, pt, pc = port_scene("glass_over_floor")
     hdr = torch.zeros((H, W, 3))
+    if "env" in kw:
+        env = tg.build_environment(procedural_sky_equirect(32, 16), CPU,
+                                   diffuse_size=4, specular_base=8,
+                                   lut_size=16)
+        depth = torch.ones((H, W))
+        lit = tg.transparent_pass(pt, pc, hdr, depth, W, H, env=env)
+        bare = tg.transparent_pass(pt, pc, hdr, depth, W, H)
+        glass = tg.transparent_layers(pt, pc, depth, W, H)[0]["mask"]
+        assert bool(glass.any()) and bool(torch.isfinite(lit).all())
+        assert not torch.equal(lit[glass], bare[glass])
+        assert torch.equal(lit[~glass], bare[~glass])
+        return
     with pytest.raises(NotImplementedError):
         tg.transparent_pass(pt, pc, hdr, torch.ones((H, W)), W, H, **kw)

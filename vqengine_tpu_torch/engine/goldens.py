@@ -1,9 +1,10 @@
-"""The hello-scene goldens through the port: render a scene with the
-golden setup and score it against ``tests/goldens/<name>.png``.
+"""The goldens the port renders so far: render a scene with the golden
+setup and score it against ``tests/goldens/<name>.png``.
 
 The setup and the bars are those of the reference's golden test
-(tests/test_golden.py:186-245): 192x108, the scene's own camera, light
-gizmos on; SSIM >= 0.985, mean MAE < 0.01 and worst 16x16 block MAE
+(tests/test_golden.py:151-245): 192x108, the scene's own camera, light
+gizmos on, the scene's environment maps built at load at the engine's
+default sizes; SSIM >= 0.985, mean MAE < 0.01 and worst 16x16 block MAE
 < 0.08 (PNG quantization noise floor ~0.004).
 """
 from __future__ import annotations
@@ -23,7 +24,11 @@ WIDTH, HEIGHT = 192, 108
 # golden -> (scene, render flags), as tests/test_golden.py configures them
 SCENES = {"hello_triangle": ("HelloTriangle", {}),
           "hello_cube": ("HelloCube", {}),
-          "hello_cube_msaa": ("HelloCube", {"msaa": True})}
+          "hello_cube_msaa": ("HelloCube", {"msaa": True}),
+          "default_scene": ("Default", {"shadow_dims": (64, 64, 64)}),
+          "default_pcf": ("Default", {"shadow_dims": (128, 64, 128),
+                                      "shadow_filter": "pcf"}),
+          "envmap_unit_test": ("EnvironmentMapUnitTest", {})}
 SSIM_MIN, MEAN_MAE_MAX, BLOCK_MAE_MAX = 0.985, 0.01, 0.08
 
 
@@ -32,7 +37,7 @@ def render_golden(golden: str, device: torch.device) -> np.ndarray:
     name, flags = SCENES[golden]
     s = load_scene(name, WIDTH, HEIGHT, draw_light_gizmos=True)
     r = VQRendererTorch(device)
-    r.load_scene(s.buffers)
+    r.load_scene(s.buffers, equirect=s.equirect)
     consts = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
     return r.render(consts, WIDTH, HEIGHT, **flags)["ldr"].cpu().numpy()
 

@@ -1,24 +1,32 @@
 """Host-only scene load: data directories, the material library, level
-XML parse, typed-scene augmentation and assembly into SceneBuffers.
+XML parse, typed-scene augmentation and assembly into SceneBuffers, and
+the decode of the scene's environment map.
 
 Counterpart of the host half of ``vqengine_tpu/engine/engine.py``
-(find_data_dirs, _load_material_lib, _load_scene_host), on the port's
-own copies of the JAX package's numpy host modules (scene, utils,
-render.scene_buffers), so it imports neither jax nor the JAX package.
-Textures and environment maps are not decoded: the result only says
-whether the scene wants them.
+(find_data_dirs, _load_material_lib, _load_scene_host,
+_decode_environment), on the port's own copies of the JAX package's
+numpy host modules (scene, utils, render.scene_buffers,
+engine.settings), so it imports neither jax nor the JAX package.
+Textures are not decoded: the result only says whether the scene wants
+them.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
+
+from ..ops.ibl import procedural_sky_equirect
 from ..render.scene_buffers import SceneBuffers, assemble_scene
 from ..scene.material import Material
 from ..scene.mesh import build_builtin_meshes
 from ..scene.scenes import augment_scene
 from ..scene.serialization import parse_material_file, parse_scene_file
 from ..utils import log
+from ..utils.image_io import read_hdr
+from .settings import load_environment_map_presets
 
 REPO_DATA = Path(__file__).resolve().parent.parent.parent / "Data"
 # Sponza with two of its own materials made translucent (load_scene's
@@ -61,6 +69,68 @@ def load_material_lib(data_dirs: list[Path]) -> tuple[dict, dict]:
     return lib, tex_paths
 
 
+def load_environment_presets(data_dirs: list[Path]) -> dict:
+    """EnvironmentMaps.ini presets of every data dir; earlier dirs win."""
+    presets: dict = {}
+    for d in reversed(data_dirs):
+        presets.update(load_environment_map_presets(d))
+    return presets
+
+
+# the equirect's largest width (8K HDRIs are overkill for 128px cubemaps)
+MAX_EQUIRECT_WIDTH = 2048
+
+
+def decode_environment(rep, data_dirs: list[Path],
+                       presets: dict) -> tuple[np.ndarray | None, float]:
+    """Host-side env-map decode, as the engine's _decode_environment: preset
+    -> HDRI file -> equirect [He, We, 3] f32; a missing file or an unknown
+    preset falls back to the procedural sky (shaped by the preset's
+    SunPitch, SunYaw and Turbidity). -> (equirect, or None when the scene
+    wants no environment; the preset's MaxCLL)."""
+    if not rep.env_map_preset and not rep.env_map_path:
+        return None, 0.0
+    equirect = None
+    path = rep.env_map_path
+    preset = {}
+    if rep.env_map_preset and rep.env_map_preset in presets:
+        preset = presets[rep.env_map_preset]
+        path = preset.get("Path", "")
+    max_cll = float(preset.get("MaxCLL", 0.0))
+    if path:
+        for base in [d.parent for d in data_dirs] + [Path(".")]:
+            p = Path(base) / path
+            if p.is_file():
+                try:
+                    equirect = read_hdr(p)
+                    log.info(f"loaded HDRI {p} {equirect.shape}")
+                    break
+                except Exception as e:  # noqa: BLE001
+                    log.warning(f"HDRI load failed for {p}: {e}")
+    if equirect is None:
+        # procedural presets (Data/EnvironmentMaps.ini SunPitch/SunYaw)
+        # parameterize the sky instead of naming a file
+        kw = {}
+        if "SunPitch" in preset or "SunYaw" in preset:
+            pitch = math.radians(float(preset.get("SunPitch", 45.0)))
+            yaw = math.radians(float(preset.get("SunYaw", 30.0)))
+            kw["sun_dir"] = (math.cos(pitch) * math.sin(yaw),
+                             math.sin(pitch),
+                             math.cos(pitch) * math.cos(yaw))
+            if "Turbidity" in preset:
+                # hazier sky: dimmer disc, brighter horizon
+                t = float(preset["Turbidity"])
+                kw["sun_intensity"] = 50.0 / max(t / 2.5, 1.0)
+        else:
+            log.warning(f"environment '{rep.env_map_preset or path}' "
+                        f"not found; using procedural sky")
+        equirect = procedural_sky_equirect(512, 256, **kw)
+    if equirect.shape[1] > MAX_EQUIRECT_WIDTH:
+        step = equirect.shape[1] // MAX_EQUIRECT_WIDTH
+        equirect = equirect[::step, ::step]
+    return equirect, max_cll
+
+
 @dataclass
 class LoadedScene:
     name: str
@@ -70,6 +140,10 @@ class LoadedScene:
     wants_environment: bool
     wants_textures: bool
     has_shadow_casters: bool
+    # the decoded environment [He, We, 3] f32 (None: the scene has none)
+    # and its preset's MaxCLL (nits; for the HDR10 encode)
+    equirect: np.ndarray | None = None
+    env_max_cll: float = 0.0
 
 
 def load_scene(name: str, width: int, height: int,
@@ -98,6 +172,8 @@ def load_scene(name: str, width: int, height: int,
     wants_textures = any(tex_paths.get(n) or (n in lib and lib[n].textures)
                          for n in used)
     has_casters = any(l.enabled and l.casts_shadows for l in lights)
+    equirect, max_cll = decode_environment(
+        rep, data_dirs, load_environment_presets(data_dirs))
     log.info(f"scene '{rep.name}': {buffers.indices.shape[0]} tris, "
              f"{len(buffers.items)} items")
     return LoadedScene(name=rep.name, buffers=buffers, cameras=cameras,
@@ -105,4 +181,5 @@ def load_scene(name: str, width: int, height: int,
                        wants_environment=bool(rep.env_map_preset
                                               or rep.env_map_path),
                        wants_textures=bool(wants_textures),
-                       has_shadow_casters=has_casters)
+                       has_shadow_casters=has_casters,
+                       equirect=equirect, env_max_cll=max_cll)

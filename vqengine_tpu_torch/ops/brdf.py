@@ -1,9 +1,10 @@
-"""PBR BRDF math for direct lights — counterpart of the direct-light part
-of ``vqengine_tpu/ops/brdf.py`` (BRDF.hlsl: GGX NDF :64-79, Smith-Schlick
-geometry :81-129, Schlick Fresnel :131-156, Cook-Torrance :163-194).
+"""PBR BRDF math — counterpart of ``vqengine_tpu/ops/brdf.py`` (BRDF.hlsl:
+GGX NDF :64-79, Smith-Schlick geometry :81-129, Schlick Fresnel :131-156,
+Cook-Torrance :163-194, EnvironmentBRDF split-sum :196-207, GGX importance
+sampling :217-238, BRDF-integration LUT :239-283; ShadingMath.hlsl
+Hammersley :119-127).
 
-Elementwise over [..., 3] / [...] tensors. The IBL helpers (split-sum
-environment BRDF, importance sampling, LUT) come with the IBL slice.
+Elementwise over [..., 3] / [...] tensors.
 """
 from __future__ import annotations
 
@@ -35,6 +36,14 @@ def normalize(v, eps: float = 1e-12):
     return v / torch.clamp(norm(v), min=eps)[..., None]
 
 
+def reflect(i, n):
+    """HLSL reflect(): i - 2*dot(n,i)*n; the dot sums left to right, as
+    XLA reduces the reference's three products on the CPU."""
+    p = n * i
+    d = (p[..., 0] + p[..., 1]) + p[..., 2]
+    return i - 2.0 * d[..., None] * n
+
+
 def ndf_ggx(ndoth, roughness):
     """Trowbridge-Reitz GGX (BRDF.hlsl:65-79)."""
     a = roughness * roughness
@@ -52,16 +61,35 @@ def geometry_smith_schlick_ggx(n, v, roughness):
     return nv / (nv * (1.0 - k) + k + 1e-4)
 
 
+def geometry_smith_schlick_ggx_ibl(n, v, roughness):
+    """IBL variant, k = r^2/2 (BRDF.hlsl:100-115)."""
+    k = torch.square(roughness) / 2.0
+    nv = torch.clamp(_dot(n, v), min=0.0)
+    return nv / (nv * (1.0 - k) + k + 1e-4)
+
+
 def geometry_smith(n, v, l, roughness):
     """BRDF.hlsl:118-121."""
     return (geometry_smith_schlick_ggx(n, v, roughness)
             * geometry_smith_schlick_ggx(n, l, roughness))
 
 
+def geometry_smith_ibl(n, v, l, roughness):
+    """BRDF.hlsl:124-129."""
+    return (geometry_smith_schlick_ggx_ibl(n, v, roughness)
+            * geometry_smith_schlick_ggx_ibl(n, l, roughness))
+
+
 def fresnel_schlick(n, v, f0):
     """BRDF.hlsl:132-136: F0 + (1-F0)*(1 - max(0, dot(N,V)))^5."""
     p = _pow5(1.0 - torch.clamp(_dot(n, v), min=0.0))
     return f0 + (1.0 - f0) * p[..., None]
+
+
+def fresnel_with_roughness(cos_theta, f0, roughness):
+    """BRDF.hlsl:152-156 (Lagarde) for IBL."""
+    one_minus_r = (1.0 - roughness)[..., None]
+    return f0 + (torch.maximum(one_minus_r, f0) - f0) * _pow5(1.0 - cos_theta)[..., None]
 
 
 def lambert_diffuse(kd):
@@ -87,3 +115,98 @@ def brdf(normal, albedo, roughness, metalness, wi, v):
 
     kd = (1.0 - f) * (1.0 - metalness[..., None])
     return lambert_diffuse(kd * albedo) + specular
+
+
+def environment_brdf(ndotv, roughness, metallic, diffuse_color,
+                     diffuse_irradiance, prefiltered_specular, f0_scale_bias):
+    """Split-sum IBL combine (BRDF.hlsl:196-207).
+    f0_scale_bias: [..., 2] from the BRDF-integration LUT."""
+    f0 = 0.04 + (diffuse_color - 0.04) * metallic[..., None]
+    ks = fresnel_with_roughness(ndotv, f0, roughness)
+    kd = (1.0 - ks) * (1.0 - metallic[..., None])
+    diffuse = diffuse_irradiance * diffuse_color
+    specular = prefiltered_specular * (ks * f0_scale_bias[..., 0:1]
+                                       + f0_scale_bias[..., 1:2])
+    return kd * diffuse + specular
+
+
+# ---------------------------------------------------------------------------
+# quasi-Monte-Carlo sampling (ShadingMath.hlsl:87-127, BRDF.hlsl:217-283)
+# ---------------------------------------------------------------------------
+
+def radical_inverse_vdc(bits: torch.Tensor) -> torch.Tensor:
+    """Van der Corput via 32-bit bit reversal (ShadingMath.hlsl:87-95), on
+    int64 with masks (torch has no uint32 shifts)."""
+    b = bits.to(torch.int64) & 0xFFFFFFFF
+    b = ((b << 16) | (b >> 16)) & 0xFFFFFFFF
+    b = ((b & 0x55555555) << 1) | ((b & 0xAAAAAAAA) >> 1)
+    b = ((b & 0x33333333) << 2) | ((b & 0xCCCCCCCC) >> 2)
+    b = ((b & 0x0F0F0F0F) << 4) | ((b & 0xF0F0F0F0) >> 4)
+    b = ((b & 0x00FF00FF) << 8) | ((b & 0xFF00FF00) >> 8)
+    return b.to(torch.float32) * 2.3283064365386963e-10
+
+
+def hammersley(i: torch.Tensor, count: int) -> torch.Tensor:
+    """[N] -> [N, 2] low-discrepancy sequence (ShadingMath.hlsl:119-127)."""
+    return torch.stack([i.to(torch.float32) / count, radical_inverse_vdc(i)],
+                       dim=-1)
+
+
+def importance_sample_ggx(xi: torch.Tensor, n: torch.Tensor,
+                          roughness) -> torch.Tensor:
+    """GGX-biased half-vector sampling (BRDF.hlsl:217-238).
+    xi: [..., 2], n: [..., 3] -> h [..., 3] world space."""
+    a = roughness * roughness
+    phi = 2.0 * PI * xi[..., 0]
+    cos_theta = torch.sqrt((1.0 - xi[..., 1])
+                           / (1.0 + (a * a - 1.0) * xi[..., 1]))
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    h_t = torch.stack([torch.cos(phi) * sin_theta,
+                       torch.sin(phi) * sin_theta,
+                       cos_theta], dim=-1)
+    # tangent basis around n (BRDF.hlsl:232-236)
+    z_up = torch.tensor([0.0, 0.0, 1.0], device=n.device).expand(n.shape)
+    x_up = torch.tensor([1.0, 0.0, 0.0], device=n.device).expand(n.shape)
+    up = torch.where(torch.abs(n[..., 2:3]) < 0.999, z_up, x_up)
+    tangent = normalize(torch.linalg.cross(up, n))
+    bitangent = torch.linalg.cross(n, tangent)
+    return normalize(tangent * h_t[..., 0:1] + bitangent * h_t[..., 1:2]
+                     + n * h_t[..., 2:3])
+
+
+def integrate_brdf(ndotv: torch.Tensor, roughness: torch.Tensor,
+                   num_samples: int = 512) -> torch.Tensor:
+    """Split-sum BRDF integration -> (F0 scale, F0 bias) (BRDF.hlsl:239-283).
+    ndotv/roughness [...] -> [..., 2]; the samples accumulate one after
+    another, in the order of the reference's lax.scan."""
+    ndotv = torch.clamp(ndotv, min=1e-4)
+    v = torch.stack([torch.sqrt(1.0 - ndotv * ndotv), torch.zeros_like(ndotv),
+                     ndotv], dim=-1)
+    n = torch.tensor([0.0, 0.0, 1.0], device=v.device).expand(v.shape)
+    xi = hammersley(torch.arange(num_samples, device=v.device), num_samples)
+    scale = torch.zeros_like(ndotv)
+    bias = torch.zeros_like(ndotv)
+    zero = torch.zeros_like(ndotv)
+    for s in range(num_samples):
+        h = importance_sample_ggx(xi[s], n, roughness)
+        l = normalize(reflect(-v, h))
+        ndotl = torch.clamp(l[..., 2], min=0.0)
+        ndoth = torch.clamp(h[..., 2], min=0.0)
+        vdoth = torch.clamp(_dot(v, h), min=0.0)
+        g = geometry_smith_ibl(n, v, l, roughness)
+        g_vis = torch.clamp(g * vdoth / torch.clamp(ndoth * ndotv, min=1e-6),
+                            min=1e-4)
+        fc = _pow5(1.0 - vdoth)
+        lit = ndotl > 0
+        scale = scale + torch.where(lit, (1.0 - fc) * g_vis, zero)
+        bias = bias + torch.where(lit, fc * g_vis, zero)
+    return torch.stack([scale, bias], dim=-1) / num_samples
+
+
+def brdf_integration_lut(size: int = 256, num_samples: int = 512,
+                         device: torch.device | str = "cpu") -> torch.Tensor:
+    """The BRDF_INTEGRATION_CS LUT (BRDF.hlsl:239-283; created once at load,
+    Renderer.h:77-84): [size, size, 2], x: NdotV, y: roughness."""
+    g = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) / size
+    r, nv = torch.meshgrid(g, g, indexing="ij")
+    return integrate_brdf(nv, r, num_samples)

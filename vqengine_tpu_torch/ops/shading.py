@@ -7,9 +7,9 @@ Light tensor layouts (scene/light.py pack_*):
   spot_extra [S, 4]: inner_angle range pad(2)
   directional [12]: dir(3) brightness color(3) depth_bias shadowing enabled
 
-Accumulation order as in the reference: ambient + emissive, point
-lights, spot lights, shadowed point casters, shadowed spot casters,
-directional.
+Accumulation order as in the reference: ambient + emissive, the
+environment term, point lights, spot lights, shadowed point casters,
+shadowed spot casters, directional.
 """
 from __future__ import annotations
 
@@ -70,11 +70,14 @@ def shade_forward(world_pos, normal, albedo, roughness, metalness, emissive,
                   ao, camera_pos, point_lights, spot_lights, spot_extra,
                   directional, point_casters=None, point_shadow=None,
                   spot_casters=None, spot_caster_extra=None, spot_shadow=None,
-                  dir_shadow=None):
-    """The PSMain illumination sum (ForwardLighting.hlsl:288-377) without
-    the environment term (IBL is not ported yet)."""
+                  dir_shadow=None, env_illumination=None):
+    """The PSMain illumination sum (ForwardLighting.hlsl:288-377): ambient
+    + emissive + environment (env_illumination [..., 3] from
+    ibl.environment_illumination) + the lights."""
     v = B.normalize(camera_pos - world_pos)
     total = albedo * ao[..., None] + emissive
+    if env_illumination is not None:
+        total = total + env_illumination
     args = (world_pos, normal, v, albedo, roughness, metalness)
     for i in range(point_lights.shape[0]):
         total = total + _point_light_radiance(point_lights[i], *args)

@@ -1,8 +1,9 @@
 """The forward render graph — counterpart of ``vqengine_tpu/render/graph.py``
 for the main path: cull + LOD, raster front end, G-buffer raster (with or
 without MSAA), material fetch, shadow maps and shadow tests, direct-light
-shading, the MSAA edge resolve, background composite, the depth-peeled
-transparent pass (and the alpha-mask peel) and tonemap.
+and environment (IBL) shading, the MSAA edge resolve, the skydome or clear
+color background, the depth-peeled transparent pass (and the alpha-mask
+peel) and tonemap; the environment maps' load-time build.
 
 PyTorch runs eagerly, so a render graph here is a plain function of
 (DeviceScene, FrameConstants) tensors on one device; nothing is traced or
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import colorspace as cs
-from ..ops import culling, palette, raster, shading, shadow, sparse
+from ..ops import culling, ibl, palette, raster, shading, shadow, sparse
 from ..ops import msaa as msaa_ops
 from ..ops import postprocess as pp
 
@@ -36,6 +37,96 @@ def _tensor(a, device) -> torch.Tensor:
     elif a.dtype == np.int64:
         a = a.astype(np.int32)
     return torch.from_numpy(a).to(device)
+
+
+@dataclass(frozen=True)
+class EnvironmentMaps:
+    """Device-resident IBL resources (the output of the reference's
+    load-time PreFilterEnvironmentMap, EnvironmentMapRendering.cpp:139-486),
+    all on `device`. The shading-time sample tables are bf16, as the
+    reference stores them (its samplers upcast to f32)."""
+    device: torch.device
+    equirect: torch.Tensor                 # [He, We, 3] bf16 linear HDR
+    diffuse_cube: torch.Tensor             # [6, Sd, Sd, 3] bf16
+    specular_mips: tuple                   # tuple of [6, S_m, S_m, 3] bf16
+    brdf_lut: torch.Tensor                 # [L, L, 2] f32
+    sh_irradiance: torch.Tensor            # [9, 3] f32 SH9 diffuse coefficients
+    brdf_poly: torch.Tensor                # [D, D, 2] f32 Chebyshev LUT fit
+
+    def to(self, device: torch.device) -> "EnvironmentMaps":
+        """The same tables, bit for bit, on `device`."""
+        device = torch.device(device)
+        return EnvironmentMaps(
+            device=device, equirect=self.equirect.to(device),
+            diffuse_cube=self.diffuse_cube.to(device),
+            specular_mips=tuple(m.to(device) for m in self.specular_mips),
+            brdf_lut=self.brdf_lut.to(device),
+            sh_irradiance=self.sh_irradiance.to(device),
+            brdf_poly=self.brdf_poly.to(device))
+
+
+def build_environment(equirect_np, device: torch.device,
+                      diffuse_size: int = 64, specular_base: int = 128,
+                      specular_mips: int = 6,
+                      lut_size: int = 256) -> EnvironmentMaps:
+    """Load-time IBL prefilter on `device` (the reference's
+    build_environment): the diffuse cube and the specular mips as row-chunked
+    products, the SH9 projection, the BRDF LUT (cached per device) and its
+    Chebyshev fit."""
+    device = torch.device(device)
+    eq = torch.as_tensor(np.asarray(equirect_np, np.float32), device=device)
+    lut = ibl.brdf_lut_cached(lut_size, device=device)
+    return EnvironmentMaps(
+        device=device,
+        equirect=eq.to(torch.bfloat16),
+        diffuse_cube=ibl.diffuse_irradiance_cube(
+            eq, size=diffuse_size).to(torch.bfloat16),
+        specular_mips=tuple(
+            m.to(torch.bfloat16) for m in ibl.specular_prefilter_mips(
+                eq, base_size=specular_base, num_mips=specular_mips)),
+        brdf_lut=lut,
+        sh_irradiance=ibl.sh9_irradiance_coeffs(eq),
+        brdf_poly=torch.as_tensor(ibl.brdf_poly_fit(lut.cpu().numpy()),
+                                  device=device),
+    )
+
+
+# how far two builds of the same environment may differ (another device,
+# or the reference): the products sum their terms in another order, so an
+# f32 ulp can flip a bf16 rounding of a few table entries, by one bf16 ulp;
+# the f32 tables by their normwise relative error (the largest difference
+# over the largest entry; the LUT's 512-sample sums round per device, and
+# the degree-20 least-squares fit magnifies the LUT's difference about
+# tenfold: a coefficient-wise error would be ruled by the smallest ones)
+ENV_BF16_MAX_ULPS = 1
+ENV_BF16_MAX_SHARE = 0.01
+ENV_F32_MAX_REL = {"sh_irradiance": 1e-5, "brdf_lut": 2e-5, "brdf_poly": 2e-4}
+
+
+def environment_differences(a: EnvironmentMaps, b: EnvironmentMaps) -> dict:
+    """Two builds' tables compared: {bf16 table: (entries that differ,
+    largest difference in bf16 ulps, entries)} and {f32 table: normwise
+    relative error}; "ok" says whether every table is within the ENV_*
+    bars."""
+    def ulps(x, y):
+        d = (x.cpu().view(torch.int16).to(torch.int32)
+             - y.cpu().view(torch.int16).to(torch.int32)).abs()
+        return int((d > 0).sum()), int(d.max()), d.numel()
+
+    def rel(x, y):
+        x, y = x.cpu().double(), y.cpu().double()
+        return float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+    out = {"equirect": ulps(a.equirect, b.equirect),
+           "diffuse_cube": ulps(a.diffuse_cube, b.diffuse_cube)}
+    for m, (x, y) in enumerate(zip(a.specular_mips, b.specular_mips)):
+        out[f"specular_mip{m}"] = ulps(x, y)
+    for name in ENV_F32_MAX_REL:
+        out[name] = rel(getattr(a, name), getattr(b, name))
+    out["ok"] = all(
+        (v[1] <= ENV_BF16_MAX_ULPS and v[0] <= ENV_BF16_MAX_SHARE * v[2])
+        if isinstance(v, tuple) else v <= ENV_F32_MAX_REL[k]
+        for k, v in out.items())
+    return out
 
 
 @dataclass(frozen=True)
@@ -189,16 +280,17 @@ def frame_constants_from_numpy(fields: dict,
 
 
 def _unproject(ndc_x: torch.Tensor, ndc_y: torch.Tensor, depth: torch.Tensor,
-               inv_view_proj: torch.Tensor) -> torch.Tensor:
+               inv_view_proj: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """(ndc_x, ndc_y, depth, 1) through inv_view_proj -> world position
-    [..., 3]. The four products are summed in pairs, as XLA sums the
-    reference's einsum "ij,hwj->hwi" and its clip @ inv_view_proj.T on the
-    CPU: the shadow tests amplify an ulp of wpos into a texel flip."""
+    [..., 3] (w below eps in magnitude divides by eps). The four products
+    are summed in pairs, as XLA sums the reference's einsum "ij,hwj->hwi"
+    and its clip @ inv_view_proj.T on the CPU: the shadow tests amplify an
+    ulp of wpos into a texel flip."""
     clip = (ndc_x, ndc_y, depth, torch.ones_like(depth))
     m = inv_view_proj
     wp = [(m[i, 0] * clip[0] + m[i, 1] * clip[1])
           + (m[i, 2] * clip[2] + m[i, 3] * clip[3]) for i in range(4)]
-    w = torch.where(wp[3].abs() > 1e-12, wp[3], torch.full_like(wp[3], 1e-12))
+    w = torch.where(wp[3].abs() > eps, wp[3], torch.full_like(wp[3], eps))
     return torch.stack(wp[:3], dim=-1) / w[..., None]
 
 
@@ -501,18 +593,33 @@ def _msaa_edge_neighbor(attrs: dict, tri_id: torch.Tensor,
     return w_img, sec_w
 
 
+def environment_term(consts: FrameConstants, env: EnvironmentMaps | None,
+                     wpos: torch.Tensor, n: torch.Tensor, mat: dict):
+    """The split-sum environment term of surfaces at wpos with normals n
+    and material mat, viewed from the camera; None without env."""
+    if env is None:
+        return None
+    v = unit3(consts.camera_pos - wpos)
+    return ibl.environment_illumination(
+        n, v, mat["roughness"], mat["metalness"], mat["albedo"],
+        env.diffuse_cube, list(env.specular_mips), env.brdf_lut,
+        hdri_yaw=consts.hdri_yaw, sh_irradiance=env.sh_irradiance,
+        brdf_poly=env.brdf_poly)
+
+
 def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
                          attrs: dict, tri_id: torch.Tensor,
                          depth: torch.Tensor, mask: torch.Tensor,
                          cov_s: torch.Tensor, spot_vis, point_vis, dir_vis,
                          width: int, height: int, enable_shadows: bool,
-                         telemetry: dict | None = None):
+                         telemetry: dict | None = None,
+                         env: EnvironmentMaps | None = None):
     """The "shade" MSAA edge resolve: the secondary surface of each edge
     pixel (msaa.resolve_secondary) interpolated from its record at the
     pixel center (raster.interp_record_attrs), unprojected from its depth,
-    and shaded by the same material and direct-light path as the primary
-    on the compacted list; shadow visibility is the pixel's own. ->
-    (w_sec [H, W], sec_rgb [H, W, 3] pre-weighted)."""
+    and shaded by the same material, environment and direct-light path as
+    the primary on the compacted list; shadow visibility is the pixel's
+    own. -> (w_sec [H, W], sec_rgb [H, W, 3] pre-weighted)."""
     cap = msaa_edge_cap(width, height)
     object_id = attrs["ids"][..., 0].to(torch.int32)
     records = attrs["records"]
@@ -545,7 +652,8 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
         spot_caster_extra=consts.spot_caster_extra if enable_shadows else None,
         spot_shadow=gs(spot_vis) if spot_vis is not None else None,
         dir_shadow=(sparse.gather_pixels(dir_vis, idx)
-                    if dir_vis is not None else None))
+                    if dir_vis is not None else None),
+        env_illumination=environment_term(consts, env, wpos, mat["normal"], mat))
     wt = torch.where(live, n_sec * 0.25, torch.zeros_like(n_sec))
     w_img = sparse.scatter_pixels(
         torch.zeros((height, width), dtype=torch.float32, device=px.device),
@@ -556,12 +664,78 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
     return w_img, rgb_img
 
 
+def _sky_dirs(consts: FrameConstants, px: torch.Tensor,
+              py: torch.Tensor) -> torch.Tensor:
+    """Unit world-space view rays through NDC columns px [W] and rows py
+    [H] at depth 0.5 -> [H, W, 3]."""
+    h, w = py.shape[0], px.shape[0]
+    wp = _unproject(px[None, :].expand(h, w), py[:, None].expand(h, w),
+                    torch.full((h, w), 0.5, device=px.device),
+                    consts.inv_view_proj, eps=1e-9)
+    return unit3(wp - consts.camera_pos)
+
+
+def sky_directions(consts: FrameConstants, width: int,
+                   height: int) -> torch.Tensor:
+    """Per-pixel world-space view-ray directions for skydome sampling."""
+    dev = consts.camera_pos.device
+    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width * 2.0 - 1.0
+    py = 1.0 - (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height * 2.0
+    return _sky_dirs(consts, px, py)
+
+
+def _sky_quarter_dirs(consts: FrameConstants, width: int,
+                      height: int) -> torch.Tensor:
+    """View-ray directions on the quarter-resolution grid whose cell (qy,
+    qx) centers at full-res pixel coords (4qx + 2, 4qy + 2)."""
+    dev = consts.camera_pos.device
+    qw, qh = -(-width // 4), -(-height // 4)
+    px = (4.0 * torch.arange(qw, dtype=torch.float32, device=dev) + 2.0) \
+        / width * 2.0 - 1.0
+    py = 1.0 - (4.0 * torch.arange(qh, dtype=torch.float32, device=dev) + 2.0) \
+        / height * 2.0
+    return _sky_dirs(consts, px, py)
+
+
+def _axis_up4(a: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
+    """Bilinear 4x upsample along one axis of a quarter grid (centers at
+    4i + 1.5): +-1 shifts (edge-clamped) blended with the four static
+    phase weights, interleaved by reshape. Output index y reads quarter
+    coord (y + 0.5)/4 - 0.5."""
+    n = a.shape[axis]
+    prev = torch.cat([a.narrow(axis, 0, 1), a.narrow(axis, 0, n - 1)], dim=axis)
+    nxt = torch.cat([a.narrow(axis, 1, n - 1), a.narrow(axis, n - 1, 1)], dim=axis)
+    # phases r = 0..3: p = i + (2r - 3)/8
+    phases = [0.375 * prev + 0.625 * a,
+              0.125 * prev + 0.875 * a,
+              0.875 * a + 0.125 * nxt,
+              0.625 * a + 0.375 * nxt]
+    out = torch.stack(phases, dim=axis + 1)
+    shape = list(a.shape)
+    shape[axis] = shape[axis] * 4
+    return out.reshape(shape).narrow(axis, 0, n_out)
+
+
+def _upsample4_phase(q: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    return _axis_up4(_axis_up4(q, 0, height), 1, width)
+
+
+def sky_background(consts: FrameConstants, env: EnvironmentMaps,
+                   width: int, height: int) -> torch.Tensor:
+    """Skydome radiance for the frame: bilinear equirect taps on the
+    quarter-resolution grid, upsampled 4x by the phase blend."""
+    sky_q = ibl.sky_radiance(_sky_quarter_dirs(consts, width, height),
+                             env.equirect, consts.hdri_yaw, bilinear=True)
+    return _upsample4_phase(sky_q, height, width)
+
+
 def shade_transparent_layer(scene_t: DeviceScene, consts: FrameConstants,
-                            depth, tri_id, gbuf, width: int,
-                            height: int) -> dict:
+                            depth, tri_id, gbuf, width: int, height: int,
+                            env: EnvironmentMaps | None = None) -> dict:
     """One peeled layer's G-buffer -> dict(depth, tri_id, mask, color
     [H, W, 3], alpha in [0, 1]): the material row's constants, shaded by
-    the direct lights without casters or screen-space effects."""
+    the environment and the direct lights without casters or screen-space
+    effects."""
     attrs, lmask = _attrs_from_gbuf(scene_t, consts, depth, tri_id, gbuf,
                                     width, height)
     mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"])
@@ -571,14 +745,17 @@ def shade_transparent_layer(scene_t: DeviceScene, consts: FrameConstants,
         emissive=mat["emissive"], ao=consts.ambient_factor * mat["local_ao"],
         camera_pos=consts.camera_pos, point_lights=consts.point_lights,
         spot_lights=consts.spot_lights, spot_extra=consts.spot_extra,
-        directional=consts.directional)
+        directional=consts.directional,
+        env_illumination=environment_term(consts, env, attrs["wpos"],
+                                          mat["normal"], mat))
     return {"depth": depth, "tri_id": tri_id, "mask": lmask, "color": color,
             "alpha": torch.clamp(mat["alpha"], 0.0, 1.0)}
 
 
 def transparent_layers(scene_t: DeviceScene, consts: FrameConstants,
                        opaque_depth: torch.Tensor, width: int, height: int,
-                       num_layers: int = 2) -> list[dict]:
+                       num_layers: int = 2,
+                       env: EnvironmentMaps | None = None) -> list[dict]:
     """Depth-peel num_layers layers of the transparent scene in front of
     the opaque depth and shade each (shade_transparent_layer): layer k's
     fragments are the nearest with depth(k - 1) < z < opaque depth (layer
@@ -593,7 +770,7 @@ def transparent_layers(scene_t: DeviceScene, consts: FrameConstants,
         d, idb, g = raster.rasterize_gbuf(binned, width, height,
                                           zbound=(zlo, opaque_depth))
         layers.append(shade_transparent_layer(scene_t, consts, d, idb, g,
-                                              width, height))
+                                              width, height, env=env))
         zlo = d       # the next layer starts behind this one
     return layers
 
@@ -618,16 +795,17 @@ def transparent_pass(scene_t: DeviceScene, consts: FrameConstants,
     split, rendered after the opaques): transparent_layers, composited
     back to front onto hdr (blend_layers). Order-independent up to
     num_layers-deep overlap; coplanar transparent fragments drop (each
-    layer is a strict peel). The environment term, textures and multichip
-    bands (full_height, y_offset) are not ported yet and raise."""
-    unported = {"env": env is not None, "textures": textures is not None,
+    layer is a strict peel). Textures and multichip bands (full_height,
+    y_offset) are not ported yet and raise."""
+    unported = {"textures": textures is not None,
                 "full_height": full_height is not None,
                 "y_offset": not (isinstance(y_offset, int) and y_offset == 0)}
     asked = [k for k, v in unported.items() if v]
     if asked:
         raise NotImplementedError(f"transparent_pass: not ported yet: {asked}")
     return blend_layers(hdr, transparent_layers(scene_t, consts, opaque_depth,
-                                                width, height, num_layers))
+                                                width, height, num_layers,
+                                                env=env))
 
 
 # the material outputs the alpha-mask peel takes from the surface behind
@@ -692,10 +870,11 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                    scene_transparent: DeviceScene | None = None,
                    msaa_edge_resolve: bool | str = True,
                    pair_capacity: int | None = None) -> dict:
-    """Forward frame: geometry -> material -> shadows -> shade -> MSAA
-    edge resolve -> background -> tonemap. Returns ldr [H, W, 3], hdr,
-    depth, tri_id, object_id, overflow [3], pair_demand and saturation, as
-    the reference does. With enable_shadows, caster lights are shadowed by
+    """Forward frame: geometry -> material -> shadows -> shade (lights and,
+    with env, the environment term) -> MSAA edge resolve -> background
+    (the skydome with env, else the clear color) -> tonemap. Returns ldr
+    [H, W, 3], hdr, depth, tri_id, object_id, overflow [3], pair_demand
+    and saturation, as the reference does. With enable_shadows, caster lights are shadowed by
     maps from `shadow_maps` (render_shadow_maps, cached) or rendered in
     the frame; without, they drop out, as in the reference. With msaa the
     G-buffer comes from the MSAA raster and the pixel blends with the
@@ -710,7 +889,7 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
     textures there is no sampled alpha, and the frame is the one without
     it, as in the reference."""
     unported = {
-        "env": env is not None, "textures": textures is not None,
+        "textures": textures is not None,
         "enable_ssao": enable_ssao, "enable_ssr": enable_ssr,
         "enable_motion_vectors": enable_motion_vectors,
         "cas_sharpness": cas_sharpness is not None,
@@ -741,6 +920,7 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
             scene, consts, attrs["wpos"], n, shadow_dims, shadow_filter,
             shadow_maps=shadow_maps)
     ao = consts.ambient_factor * mat["local_ao"]
+    env_illum = environment_term(consts, env, attrs["wpos"], n, mat)
     hdr = shading.shade_forward(
         world_pos=attrs["wpos"], normal=n, albedo=mat["albedo"],
         roughness=mat["roughness"], metalness=mat["metalness"],
@@ -751,8 +931,11 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
         point_shadow=point_vis,
         spot_casters=consts.spot_casters if enable_shadows else None,
         spot_caster_extra=consts.spot_caster_extra if enable_shadows else None,
-        spot_shadow=spot_vis, dir_shadow=dir_vis)
-    background = consts.clear_color.expand(hdr.shape)
+        spot_shadow=spot_vis, dir_shadow=dir_vis, env_illumination=env_illum)
+    if env is not None:
+        background = sky_background(consts, env, width, height)
+    else:
+        background = consts.clear_color.expand(hdr.shape)
     if coverage is not None:
         # covered-sample share: silhouettes blend with the background; at
         # edges between two surfaces the resolve splits the covered samples
@@ -762,7 +945,7 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                 w_sec, sec_rgb = _msaa_edge_secondary(
                     scene, consts, attrs, tri_id, depth, mask, coverage,
                     spot_vis, point_vis, dir_vis, width, height,
-                    enable_shadows, telemetry=tel)
+                    enable_shadows, telemetry=tel, env=env)
             else:
                 w_sec, sec_rgb = _msaa_edge_neighbor(
                     attrs, tri_id, depth, mask, coverage, hdr, width, height,
@@ -777,7 +960,7 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
         hdr = torch.where(mask[..., None], hdr, background)
     if scene_transparent is not None and scene_transparent.num_tris_live > 0:
         hdr = transparent_pass(scene_transparent, consts, hdr, depth,
-                               width, height)
+                               width, height, env=env)
     ldr = pp.tonemap(hdr, output_display_curve, apply_gamma=apply_gamma)
     return {"ldr": ldr, "hdr": hdr, "depth": depth, "tri_id": tri_id,
             "object_id": torch.where(mask, mat["object_id"],

@@ -1,7 +1,7 @@
 """Renderer — counterpart of ``vqengine_tpu/render/renderer.py``
 (VQRendererTPU): owns the device scene (its opaque and transparent
-parts), packs the per-frame constants,
-renders the cached shadow maps of static casters and keeps the
+parts) and its environment maps (built at load), packs the per-frame
+constants, renders the cached shadow maps of static casters and keeps the
 demand-sized binning capacity (the pair bucket).
 
 The reference caches one jitted graph per static option set; the port
@@ -23,19 +23,32 @@ from . import graph
 from .scene_buffers import SceneBuffers, split_transparent
 
 
+def _tensor_keep_bits(v, device: torch.device) -> torch.Tensor:
+    """numpy -> tensor on `device`; ml_dtypes bfloat16 keeps its bits."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return graph._tensor(a, device)
+
+
 def shadow_maps_from_numpy(maps: dict, device: torch.device) -> dict:
     """The JAX package's shadow-map dict (numpy leaves, from
     render_shadow_maps or precompute_shadow_maps) -> the port's, on
     `device`. bf16 maps arrive as ml_dtypes bfloat16 and keep their bits."""
-    out = {}
-    for k, v in maps.items():
-        a = np.asarray(v)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.uint16).view(np.int16).copy())
-            out[k] = t.view(torch.bfloat16).to(device)
-        else:
-            out[k] = graph._tensor(a, device)
-    return out
+    return {k: _tensor_keep_bits(v, device) for k, v in maps.items()}
+
+
+def environment_from_numpy(maps: dict, device: torch.device) -> graph.EnvironmentMaps:
+    """The JAX package's EnvironmentMaps as numpy leaves ({field: array},
+    specular_mips a sequence of arrays) -> the port's, on `device`, bit
+    for bit: the bf16 tables arrive as ml_dtypes bfloat16."""
+    device = torch.device(device)
+    fields = {k: _tensor_keep_bits(maps[k], device)
+              for k in ("equirect", "diffuse_cube", "brdf_lut",
+                        "sh_irradiance", "brdf_poly")}
+    mips = tuple(_tensor_keep_bits(m, device) for m in maps["specular_mips"])
+    return graph.EnvironmentMaps(device=device, specular_mips=mips, **fields)
 
 
 def frame_constants_numpy(buffers: SceneBuffers, camera, lights,
@@ -117,8 +130,16 @@ class VQRendererTorch:
         # the default on overflow
         self.pair_bucket: int | None = None
         self._pair_demand_max = 0
+        # the scene's environment maps (graph.build_environment), or None
+        self.env: graph.EnvironmentMaps | None = None
 
-    def load_scene(self, buffers: SceneBuffers) -> None:
+    def load_scene(self, buffers: SceneBuffers, equirect=None) -> None:
+        """Upload the scene; with an equirect [He, We, 3] (the decoded
+        environment, scene_load.LoadedScene.equirect) also build its
+        environment maps on the device at the engine's default sizes, as
+        its _build_environment_maps does at load."""
+        self.env = (graph.build_environment(equirect, self.device)
+                    if equirect is not None else None)
         opaque, transparent = split_transparent(buffers)
         self.scene = graph.upload_scene(opaque, self.device)
         self.scene_t = (graph.upload_scene(transparent, self.device)
@@ -148,11 +169,13 @@ class VQRendererTorch:
                **flags) -> dict:
         """One forward frame (graph.render_forward; flags such as
         enable_shadows, shadow_dims, shadow_filter and shadow_maps pass
-        through) at the current pair bucket, with the scene's transparent
+        through) at the current pair bucket, lit by the scene's environment
+        maps (env=None renders without them), with the scene's transparent
         part blended over it; the opaque pass's measured demand then
         updates the bucket."""
         if self.scene is None:
             raise RuntimeError("load_scene first")
+        flags.setdefault("env", self.env)
         out = graph.render_forward(self.scene, consts, width, height,
                                    pair_capacity=self.pair_bucket,
                                    scene_transparent=self.scene_t, **flags)

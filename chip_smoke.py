@@ -76,7 +76,13 @@ the final line:
      the MSAA Sponza frame (192x108, cached 64^2 ESM maps) on the card
      against the CPU in both edge-resolve modes, and the translucent Sponza
      frame (the same, with its transparent pass) on the card against the
-     CPU;
+     CPU; the goldens include default_ssao and default_ssr;
+  8b. the engine's default passes on the Default scene at 192x108, card
+     against CPU (`[post]` lines): each SSAO preset, and the engine's
+     default flags over two frames whose camera turns and whose SSR
+     history carries, motion on the static and on the palette path (one
+     more K3 launch a frame); ldr, ao, motion and ssr_history within their
+     bars, every SSAO tap fetch, SSR march cell and SSR hit texel equal;
   9. main paths, Sponza 1920x1080 lit by its environment (the maps built
      at load) with the skydome behind it, each with the kernel launch
      counts set to 0 just before it and read just after: (a) the shadowed path
@@ -91,15 +97,25 @@ the final line:
      edge resolve; (f) the translucent Sponza
      on its own renderer: the precompute, 16 engine-default frames and 4
      without MSAA, each with the two-layer transparent pass (2 K1-bounded
-     launches per frame), the layers' pixel counts of the first frame.
-     Overflow 0 and finite output; ms/frame, peak memory, launches.
+     launches per frame), the layers' pixel counts of the first frame;
+     (g) the engine's full default frame (settings.render_flags of
+     FGraphicsSettings: MSAA, SSAO "medium", motion vectors, SSR): the
+     precompute, then the 16-frame sweep with each frame's prev_view_proj
+     the one before's and the SSR history carried, then the same frames
+     without SSR and without SSAO.
+     Overflow 0 and finite output; ms/frame, peak memory, launches,
+     saturation; `[time]` lines give each phase's finish time.
 `--profile` adds stage rows (among them the environment term, the
-skydome and the environment build) and traces the default frame.
+skydome, the environment build, SSAO, motion vectors and the SSR trace,
+denoise and composite) and traces the default frame of path (e) (no
+SSAO, SSR or motion) and the full default frame of (g) (device ops and
+idle share of each).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -118,6 +134,13 @@ SMALL_W, SMALL_H = 192, 108
 SMALL_DIMS = (64, 64, 64)
 GBUF_TOL = 1e-6   # the kernel mirrors the plain version's rounding
 ENTRY_TOL = 3e-4  # card vs CPU ldr: the multichip bar of the reference
+# card vs CPU, the engine's default passes: the AO's blur and upsample
+# weights go through exp, which the card rounds otherwise; the motion
+# vectors' palette path inverts each item's 4x4 world matrix (cuSOLVER and
+# LAPACK round otherwise); the SSR history carries both into radiance
+AO_TOL = 1e-5
+MOTION_TOL = 2e-5
+HIST_TOL = 1e-4
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
 # tensor cores, and HBM3
 FP32_FLOPS = 67e12
@@ -394,8 +417,9 @@ def phase_raster(dev, sponza, renderer) -> dict:
     if not gerr <= GBUF_TOL:
         fail(f"K1 gbuf max |kernel - plain| {gerr} > {GBUF_TOL}")
     t_k = time_ms(lambda: raster.rasterize_gbuf(binned, W, H), 20)
-    t_p = time_ms(lambda: raster.rasterize_gbuf_plain(binned, W, H),
-                  3, warmup=1)
+    # the plain version ran just above: that call is its warm-up
+    t_p = time_ms(lambda: raster.rasterize_gbuf_plain(binned, W, H), 1,
+                  warmup=0)
     # outputs: depth, tri_id and 16 G-buffer channels, 4 bytes each
     work = raster_work(binned, W, H, 4 * (2 + raster.GBUF_OUT), RASTER_FLOPS,
                        raster.CENTER)
@@ -476,7 +500,7 @@ def phase_raster_msaa(dev, binned) -> dict:
              f"one-sample, {p_only} sample-only, {z1} z = 1")
     t_k = time_ms(lambda: raster.rasterize_gbuf(binned, W, H, msaa=True), 20)
     t_p = time_ms(lambda: raster.rasterize_gbuf_plain(binned, W, H, msaa=True),
-                  3, warmup=1)
+                  1, warmup=0)
     # outputs: depth, tri_id, 16 G-buffer channels and 4 coverage planes
     work = raster_work(binned, W, H, 4 * (2 + raster.GBUF_OUT + 4),
                        RASTER_FLOPS_MSAA, raster.COVERAGE)
@@ -617,7 +641,7 @@ def phase_raster_bounded(dev, sponza, renderer, st, rt) -> tuple:
         t_k = time_ms(lambda: raster.rasterize_gbuf(tb, W, H, msaa=msaa,
                                                     zbound=first), 20)
         t_p = time_ms(lambda: raster.rasterize_gbuf_plain(
-            tb, W, H, msaa=msaa, zbound=first), 3, warmup=1)
+            tb, W, H, msaa=msaa, zbound=first), 1, warmup=0)
         # outputs: depth, tri_id, 16 G-buffer channels (and 4 coverage
         # planes); the window's two planes read once
         out_px = 4 * (2 + raster.GBUF_OUT + (4 if msaa else 0)) + 8
@@ -752,7 +776,7 @@ def phase_vis(dev, sponza, renderer) -> dict:
         t_k = time_ms(lambda: raster.rasterize(binned, size, size), 10)
         if plain_ms is None:
             plain_ms = time_ms(lambda: raster.rasterize_plain(binned, size, size),
-                               1, warmup=1)
+                               1, warmup=0)
             plain_view = name
         # depth + tri_id; the bound counts the pairs the plain output won
         work = raster_work(binned, size, size, 8, RASTER_FLOPS, raster.CENTER,
@@ -797,7 +821,7 @@ def phase_vis_msaa4(renderer, consts, views) -> dict:
         err = max(err, float((d - d2).abs().max()))
         t_k = time_ms(lambda: raster.rasterize(binned, size, size, msaa=True), 10)
         t_p = time_ms(lambda: raster.rasterize_plain(binned, size, size, msaa=True),
-                      1, warmup=1)
+                      1, warmup=0)
         # depth and tri_id per sample
         work = raster_work(binned, size, size, 4 * 8, RASTER_FLOPS_MSAA4,
                            raster.SAMPLES4)
@@ -1008,15 +1032,199 @@ def phase_transparent_card_vs_cpu(dev) -> None:
         fail(f"translucent Sponza card vs CPU: {same} equal ids, ldr diff {diff}")
 
 
-def run_frames(renderer, consts: list, card: str, label: str, **flags) -> dict:
+@contextlib.contextmanager
+def recorded_selections(rec: dict):
+    """While the context lasts, record every pyramid fetch's flat index (the
+    SSAO taps' level and texel, the SSR march's level and cell per step:
+    rec["fetch"]) and every SSR trace's final texels (rec["texel"], from a
+    second trace of a colour whose red channel is each pixel's index)."""
+    from vqengine_tpu_torch.ops import ssao, ssr
+    saved = (ssao._gather, ssr._gather, ssr.trace_reflections)
+    gather, trace = ssao._gather, ssr.trace_reflections
+
+    def rec_gather(flat, idx):
+        rec["fetch"].append(idx.cpu())
+        return gather(flat, idx)
+
+    def rec_trace(color, *a, **k):
+        h, w = color.shape[:2]
+        enc = torch.zeros_like(color)
+        enc[..., 0] = torch.arange(h * w, dtype=torch.float32,
+                                   device=color.device).reshape(h, w)
+        rec["texel"].append(trace(enc, *a, **k)[0][..., 0].cpu())
+        return trace(color, *a, **k)
+    ssao._gather = ssr._gather = rec_gather
+    ssr.trace_reflections = rec_trace
+    try:
+        yield rec
+    finally:
+        ssao._gather, ssr._gather, ssr.trace_reflections = saved
+
+
+def selection_mismatches(a: dict, b: dict) -> dict:
+    """{"fetch": mismatched indices, "texel": mismatched texels} between two
+    recordings of the same frames."""
+    out = {}
+    for k in ("fetch", "texel"):
+        if len(a[k]) != len(b[k]):
+            fail(f"{k}: {len(a[k])} recordings on the card, {len(b[k])} on the CPU")
+        out[k] = sum(int((x != y).sum()) for x, y in zip(a[k], b[k]))
+    return out
+
+
+def post_differences(outs: list) -> dict:
+    """max |card - CPU| of ldr, ao, motion and ssr_history where present."""
+    return {k: float((outs[0][k].cpu() - outs[1][k].cpu()).abs().max())
+            for k in ("ldr", "ao", "motion", "ssr_history") if k in outs[0]}
+
+
+def check_post(label: str, diff: dict, sel: dict) -> None:
+    bars = {"ldr": ENTRY_TOL, "ao": AO_TOL, "motion": MOTION_TOL,
+            "ssr_history": HIST_TOL}
+    say(f"[post] {label}, card vs CPU: max |diff| "
+        f"{ {k: f'{v:.3g}' for k, v in diff.items()} } (bars "
+        f"{ {k: bars[k] for k in diff} }); mismatched pyramid fetches "
+        f"{sel['fetch']}, mismatched SSR hit texels {sel['texel']}")
+    if any(not v <= bars[k] for k, v in diff.items()) or sel["fetch"] or sel["texel"]:
+        fail(f"{label} card vs CPU: {diff}, {sel}")
+
+
+def phase_post_card_vs_cpu(dev, env_cpu) -> None:
+    """The engine's default passes on the Default scene at 192x108, on the
+    card and on the CPU with the same environment tables (the CPU's build of
+    Sponza's sky) and cached 64^2 ESM maps: each SSAO preset (no MSAA, no
+    environment);
+    then the engine's default flags (render_flags of FGraphicsSettings:
+    MSAA, SSAO "medium", motion vectors, SSR) over two frames whose camera
+    turns and whose SSR history carries, with motion on the static path
+    and on the palette path (K3's [N, 12] rows: one more launch a frame).
+    ldr, ao, motion and ssr_history within their bars; every SSAO tap's and
+    SSR step's pyramid fetch and every SSR hit texel equal."""
+    from vqengine_tpu_torch.engine.scene_load import load_scene
+    from vqengine_tpu_torch.engine.settings import FGraphicsSettings, render_flags
+    from vqengine_tpu_torch.ops import _backend, ssao
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    s = load_scene("Default", SMALL_W, SMALL_H)
+    cam = s.cameras[0]
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        r.env = env_cpu.to(d)
+        c = r.build_frame_constants(s.buffers, cam, s.lights)
+        sides.append((r, r.precompute_shadow_maps(c, SMALL_DIMS)))
+    common = dict(shadow_dims=SMALL_DIMS)
+
+    def render_both(consts_kw: dict, flags: dict, hist=(None, None)):
+        outs, recs, k3 = [], [], 0
+        for (r, maps), h in zip(sides, hist):
+            c = r.build_frame_constants(s.buffers, cam, s.lights, **consts_kw)
+            rec = {"fetch": [], "texel": []}
+            before = _backend.launches["palette"]
+            with recorded_selections(rec):
+                outs.append(r.render(c, SMALL_W, SMALL_H, shadow_maps=maps,
+                                     ssr_history=h, **common, **flags))
+            k3 = k3 or _backend.launches["palette"] - before
+            recs.append(rec)
+        return outs, selection_mismatches(*recs), k3, recs[0]
+
+    for q in ssao.PRESETS:       # the AO needs no environment
+        outs, sel, _, rec = render_both({}, dict(enable_ssao=True, ssao_quality=q,
+                                                 env=None))
+        check_post(f"Default {SMALL_W}x{SMALL_H}, SSAO {q!r} ({len(rec['fetch'])} "
+                   f"tap fetches)", post_differences(outs), sel)
+    flags = render_flags(FGraphicsSettings())
+    base_yaw = cam.yaw
+    for ids in ((), None):
+        hist, prev = (None, None), None
+        for f, yaw in enumerate((0.0, 3.0)):
+            cam.yaw = base_yaw + yaw
+            outs, sel, k3, rec = render_both(dict(prev_view_proj=prev),
+                                             dict(flags, dynamic_item_ids=ids), hist)
+            path = "static" if ids == () else "palette (K3)"
+            check_post(f"Default {SMALL_W}x{SMALL_H}, engine default (MSAA, SSAO, "
+                       f"SSR, motion on the {path} path), frame {f}; K3 launches "
+                       f"{k3}; {len(rec['texel'])} traces", post_differences(outs), sel)
+            if k3 != (4 if ids == () else 5):
+                fail(f"{path} motion: K3 launched {k3} times in a frame")
+            # the first frame's camera stands still: exactly 0 on the
+            # static path, the inverse's ulps on the palette path
+            moving = float(outs[0]["motion"].abs().max())
+            if not (moving > 1e-3 if f else moving <= (0.0 if ids == () else MOTION_TOL)):
+                fail(f"{path} motion, frame {f}: max |motion| {moving}")
+            hist = tuple(o["ssr_history"] for o in outs)
+            prev = sides[1][0].build_frame_constants(
+                s.buffers, cam, s.lights).view_proj.numpy()
+    cam.yaw = base_yaw
+
+
+def phase_default_path(dev, card: str, sponza, renderer) -> dict:
+    """(g) the engine's full default frame (render_flags of
+    FGraphicsSettings: MSAA 4x with the neighbor edge resolve, SSAO
+    "medium", motion vectors on the static path, SSR) on cached ESM maps,
+    lit by the environment: the precompute, then the 16-frame yaw sweep,
+    each frame's prev_view_proj the frame before's and the SSR history
+    carried; then the same frames without SSR and without SSAO (the cost
+    of each) -> launches of the precompute and the full frames."""
+    from vqengine_tpu_torch.engine.settings import FGraphicsSettings, render_flags
+    flags = dict(render_flags(FGraphicsSettings()), dynamic_item_ids=())
+    cam = sponza.cameras[0]
+    base_yaw = cam.yaw
+    consts, prev = [], None
+    for i in range(N_FRAMES):
+        sweep_camera(cam, i, base_yaw)
+        c = renderer.build_frame_constants(sponza.buffers, cam, sponza.lights,
+                                           prev_view_proj=prev)
+        consts.append(c)
+        prev = c.view_proj.cpu().numpy()
+    cam.yaw = base_yaw
+    maps = renderer.precompute_shadow_maps(consts[0])
+    hist = None
+    for c in consts[:2]:                          # warm-up
+        hist = renderer.render(c, W, H, shadow_maps=maps, ssr_history=hist,
+                               **flags)["ssr_history"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    maps, _, pre = precompute(renderer, consts[0], card, "esm")
+    full = run_frames(renderer, consts, card,
+                      "(g) the engine's full default frame: MSAA 4x, neighbor "
+                      "edge resolve, cached ESM maps, environment and skydome, "
+                      "SSAO medium, motion vectors (static path), SSR with its "
+                      "history carried", carry_ssr=True, shadow_maps=maps, **flags)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    n = len(consts)
+    if (full["raster_gbuf_msaa"] != n or full["palette"] != 4 * n
+            or full["raster_gbuf"] or full["raster_vis"]):
+        fail(f"(g) frames launched {full}")
+    no_ssr = run_frames(renderer, consts, card, "(g) without SSR",
+                        shadow_maps=maps, **dict(flags, enable_ssr=False))
+    no_ssao = run_frames(renderer, consts, card, "(g) without SSAO",
+                         carry_ssr=True, shadow_maps=maps,
+                         **dict(flags, enable_ssao=False))
+    if no_ssr != full or no_ssao != full:
+        fail(f"(g) launches without SSR {no_ssr} / SSAO {no_ssao}, with {full}")
+    say(f"[main] (g) launches per frame {({k: v / n for k, v in full.items()})}; "
+        f"peak device memory {peak:.1f} MiB (precompute + {n} full frames)")
+    return {k: pre[k] + full[k] for k in full}
+
+
+def run_frames(renderer, consts: list, card: str, label: str,
+               carry_ssr: bool = False, **flags) -> dict:
     """Render the frames (CUDA events around each) with the launch counts
     set to 0 first; fail on overflow, non-finite output or a plain version
-    run on CUDA tensors. -> launches."""
+    run on CUDA tensors. carry_ssr passes each frame's out["ssr_history"]
+    to the next, as the engine does (the first frame starts afresh), and
+    checks that its sample count grows; where the frames carry motion
+    vectors, every frame after the first (whose camera turned) must have
+    some. -> launches."""
     from vqengine_tpu_torch.ops import _backend
     torch.cuda.synchronize()
     _backend.reset_counts()
-    times, cover, sat = [], [], []
+    times, cover, sat, extra = [], [], [], {}
+    history = None
     for i, c in enumerate(consts):
+        if carry_ssr:
+            flags["ssr_history"] = history
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1033,6 +1241,19 @@ def run_frames(renderer, consts: list, card: str, label: str, **flags) -> dict:
         if "msaa_edges" in out["saturation"]:
             sat.append((float(out["saturation"]["msaa_edges"]),
                         float(out["saturation"]["msaa_edges_demand"])))
+        for k in ("ssao_refine", "ssr_rays"):
+            if k in out["saturation"]:
+                extra.setdefault(k, []).append(float(out["saturation"][k]))
+        for k in ("ao", "motion", "ssr_history"):
+            if k in out and not bool(torch.isfinite(out[k]).all()):
+                fail(f"{label} frame {i}: {k} not finite")
+        if "motion" in out and i > 0 and not float(out["motion"].abs().max()) > 0:
+            fail(f"{label} frame {i}: the camera turned but motion is 0")
+        if carry_ssr:
+            history = out["ssr_history"]
+            if float(history[..., 6].max()) != min(i + 1, 32):
+                fail(f"{label} frame {i}: SSR history sample count "
+                     f"{float(history[..., 6].max())}, expected {i + 1}")
     launches = dict(_backend.launches)
     plain = dict(_backend.plain_cuda_calls)
     ms = sorted(times)
@@ -1047,6 +1268,11 @@ def run_frames(renderer, consts: list, card: str, label: str, **flags) -> dict:
             f"{max(v for _, v in sat):.4f}")
         if max(v for v, _ in sat) > 1.0:
             fail(f"{label}: the edge compaction overflowed: {sat}")
+    if flags.get("enable_ssao") or flags.get("enable_ssr"):
+        say(f"[main] {label}: saturation "
+            + (", ".join(f"{k} {min(v):.4f}..{max(v):.4f}" for k, v in extra.items())
+               or "ssao_refine and ssr_rays absent (the SSAO preset has no "
+               "refinement, the rays march dense)"))
     say(f"[main] {label}: kernel launches {launches}; plain-version calls on "
         f"CUDA tensors {plain}")
     if max(plain.values()) != 0:
@@ -1260,8 +1486,6 @@ def phase_profile(sponza, renderer) -> None:
     idle time from a torch.profiler trace of PROFILE_FRAMES default frames
     (MSAA, neighbor edge resolve, cached maps), written to
     traces/sponza_trace.json."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
     from vqengine_tpu_torch.ops import msaa, raster, shadow
     from vqengine_tpu_torch.render import graph
     c = renderer.build_frame_constants(sponza.buffers, sponza.cameras[0],
@@ -1345,22 +1569,100 @@ def phase_profile(sponza, renderer) -> None:
     }
     for name, fn in mstages.items():
         say(f"[profile] stage {time_ms(fn, 10):8.3f} ms  {name}")
+    # the engine's default passes (SSAO, motion vectors, SSR) on the MSAA
+    # frame's G-buffer, and the engine's full default frame
+    from vqengine_tpu_torch.engine.settings import FGraphicsSettings, render_flags
+    from vqengine_tpu_torch.ops import ssao as ssao_ops
+    from vqengine_tpu_torch.ops import ssr as ssr_ops
+    flags = dict(render_flags(FGraphicsSettings()), dynamic_item_ids=())
+    cam = sponza.cameras[0]
+    cam.yaw += 2.0
+    c1 = renderer.build_frame_constants(sponza.buffers, cam, sponza.lights,
+                                        prev_view_proj=c.view_proj.cpu().numpy())
+    cam.yaw -= 2.0
+    n_m = graph.unit3(attrs_m["wnrm"])
+    mat_m = graph.material_pass(n_m, attrs_m["mrow"], attrs_m["ids"])
+    d_h = graph.pool2(depth)
+    th = ssao_ops.tan_half(c.proj_params[2])
+    hist = renderer.render(c, W, H, shadow_maps=maps, **flags)["ssr_history"]
+    motion = graph.motion_vectors(scene, c1, attrs_m["wpos"], tri_id, mask,
+                                  item_id=mat_m["item_id"], dynamic_item_ids=())
+    refl_q, conf_q = ssr_ops.trace_reflections(
+        graph.pool2(graph.pool2(hdr)), graph.pool2(d_h),
+        graph.pool2(graph.pool2(n_m)), c1.view_matrix, c1.proj_params,
+        tan_half_fov=th)
+    hh, hw = d_h.shape
+    refl_h, conf_h = graph.up2_fit(refl_q, hh, hw), graph.up2_fit(conf_q, hh, hw)
+    refl_dn, _ = ssr_ops.denoise_reflections(refl_h, conf_h,
+                                             graph.pool2(mat_m["roughness"]),
+                                             history=hist, motion=graph.pool2(motion),
+                                             depth=d_h)
+    v = graph.unit3(c1.camera_pos - attrs_m["wpos"])
+    whole_g = "whole frame (engine default, full: + SSAO, motion, SSR)"
+    gstages = {
+        "SSAO medium (ssao_pass: half-res 12-tap spiral, blur, bilateral "
+        "upsample)": lambda: graph.ssao_pass(c1, depth, n_m, "medium", d_h=d_h,
+                                             tan_half_fov=th),
+        "motion vectors (static path)":
+            lambda: graph.motion_vectors(scene, c1, attrs_m["wpos"], tri_id, mask,
+                                         item_id=mat_m["item_id"],
+                                         dynamic_item_ids=()),
+        "motion vectors (palette path, K3 [N, 12] rows)":
+            lambda: graph.motion_vectors(scene, c1, attrs_m["wpos"], tri_id, mask,
+                                         item_id=mat_m["item_id"],
+                                         dynamic_item_ids=None),
+        "SSR trace (quarter-res hi-Z march, 14 steps, with the pools)":
+            lambda: ssr_ops.trace_reflections(
+                graph.pool2(graph.pool2(hdr)), graph.pool2(d_h),
+                graph.pool2(graph.pool2(n_m)), c1.view_matrix, c1.proj_params,
+                tan_half_fov=th),
+        "SSR denoise (half-res prefilter, reprojected temporal resolve)":
+            lambda: ssr_ops.denoise_reflections(
+                refl_h, conf_h, graph.pool2(mat_m["roughness"]), history=hist,
+                motion=graph.pool2(motion), depth=d_h),
+        "SSR apply (full-res upsample and Fresnel composite)":
+            lambda: ssr_ops.apply_reflections(
+                hdr, graph.up2_fit(refl_dn, H, W), graph.up2_fit(conf_h, H, W),
+                mat_m["roughness"], mat_m["metalness"], mat_m["albedo"], n_m, v),
+        "SSR whole (ssr_pass)":
+            lambda: graph.ssr_pass(c1, hdr, depth, n_m, mat_m, attrs_m["wpos"],
+                                   mask, motion, hist, d_h=d_h, tan_half_fov=th),
+        whole_g: lambda: renderer.render(c1, W, H, shadow_maps=maps,
+                                         ssr_history=hist, **flags),
+    }
+    for name, fn in gstages.items():
+        say(f"[profile] stage {time_ms(fn, 10):8.3f} ms  {name}")
+    trace_frames("frames", "sponza_trace.json", "default (MSAA, cached-map, "
+                 "environment; no SSAO, SSR or motion)",
+                 lambda: renderer.render(c, W, H, shadow_maps=maps, msaa=True))
+    trace_frames("full frames", "sponza_full_trace.json", "full engine default "
+                 "(+ SSAO, motion vectors, SSR)",
+                 lambda: renderer.render(c1, W, H, shadow_maps=maps,
+                                         ssr_history=hist, **flags))
+
+
+def trace_frames(window_name: str, file_name: str, label: str, frame) -> None:
+    """A torch.profiler trace of PROFILE_FRAMES frames after a warm-up,
+    written to traces/<file_name>: the card's busy time, device ops and
+    idle share per frame, and the largest device rows (the hand kernels'
+    rows always)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        renderer.render(c, W, H, shadow_maps=maps, msaa=True)  # warm-up
+        frame()                                   # warm-up
         torch.cuda.synchronize()
-        with record_function("frames"):
+        with record_function(window_name):
             for _ in range(PROFILE_FRAMES):
-                renderer.render(c, W, H, shadow_maps=maps, msaa=True)
+                frame()
             torch.cuda.synchronize()
-    path = ROOT / "traces" / "sponza_trace.json"
+    path = ROOT / "traces" / file_name
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
-    window, busy, rows = idle_share(json.loads(path.read_text()), "frames")
+    window, busy, rows = idle_share(json.loads(path.read_text()), window_name)
     if busy <= 0:
         fail("the profiled frames ran nothing on the card")
     k = sum(n for _, n in rows.values())
-    say(f"[profile] trace {path.relative_to(ROOT)}: {PROFILE_FRAMES} default "
-        f"(MSAA, cached-map) frames in {window:.3f} ms wall ({window / PROFILE_FRAMES:.3f} "
+    say(f"[profile] trace {path.relative_to(ROOT)}: {PROFILE_FRAMES} {label} "
+        f"frames in {window:.3f} ms wall ({window / PROFILE_FRAMES:.3f} "
         f"ms/frame, profiler on); card busy {busy / PROFILE_FRAMES:.3f} "
         f"ms/frame in {k // PROFILE_FRAMES} device ops; idle share "
         f"{1 - busy / window:.4f}")
@@ -1475,26 +1777,36 @@ def check_imports() -> None:
 
 
 def main() -> None:
+    t0 = time.perf_counter()
+
+    def timed(label: str, fn, *args):
+        """Run one phase and print the seconds since the start."""
+        out = fn(*args)
+        say(f"[time] {label} done at {time.perf_counter() - t0:.1f} s")
+        return out
     card = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    sponza, renderer = load_sponza(dev)
-    st, rt = load_sponza(dev, translucent=True)
-    k3 = phase_palette(dev, sponza, renderer)
-    k1, k1_msaa = phase_raster(dev, sponza, renderer)
-    k1_bounded, k1_msaa_bounded = phase_raster_bounded(dev, sponza, renderer,
-                                                       st, rt)
-    phase_reject_probe(dev)
-    k2, k2_msaa4 = phase_vis(dev, sponza, renderer)
-    env_cpu = phase_environment(dev, card, sponza)
-    phase_env_card_vs_cpu(dev, env_cpu)
-    phase_goldens(dev)
-    phase_shadow_card_vs_cpu(dev)
-    phase_msaa_card_vs_cpu(dev)
-    phase_transparent_card_vs_cpu(dev)
-    launches = phase_main_path(dev, card, sponza, renderer)
-    lt = phase_transparent_path(card, st, rt)
-    launches = {k: launches[k] + lt[k] for k in launches}
+    timed("build", phase_build)
+    sponza, renderer = timed("Sponza", load_sponza, dev)
+    st, rt = timed("translucent Sponza", load_sponza, dev, True)
+    k3 = timed("K3", phase_palette, dev, sponza, renderer)
+    k1, k1_msaa = timed("K1, K1-MSAA", phase_raster, dev, sponza, renderer)
+    k1_bounded, k1_msaa_bounded = timed("K1-bounded", phase_raster_bounded, dev,
+                                        sponza, renderer, st, rt)
+    timed("reject probes", phase_reject_probe, dev)
+    k2, k2_msaa4 = timed("K2, K2-msaa4", phase_vis, dev, sponza, renderer)
+    env_cpu = timed("environment", phase_environment, dev, card, sponza)
+    timed("env frames card vs CPU", phase_env_card_vs_cpu, dev, env_cpu)
+    timed("goldens", phase_goldens, dev)
+    timed("shadow card vs CPU", phase_shadow_card_vs_cpu, dev)
+    timed("MSAA card vs CPU", phase_msaa_card_vs_cpu, dev)
+    timed("transparent card vs CPU", phase_transparent_card_vs_cpu, dev)
+    timed("SSAO/SSR/motion card vs CPU", phase_post_card_vs_cpu, dev, env_cpu)
+    launches = timed("main paths (a)-(e)", phase_main_path, dev, card, sponza,
+                     renderer)
+    lt = timed("main path (f)", phase_transparent_path, card, st, rt)
+    lg = timed("main path (g)", phase_default_path, dev, card, sponza, renderer)
+    launches = {k: launches[k] + lt[k] + lg[k] for k in launches}
     if "--profile" in sys.argv[1:]:
         # timed before the traced frames, as phase_profile times its stages
         phase_profile_transparent(st, rt)
@@ -1530,6 +1842,8 @@ def main() -> None:
              replaces="vqengine_tpu/ops/raster.py:1004",
              launches=launches["raster_gbuf_msaa_bounded"], **k1_msaa_bounded),
     ]
+    say(f"[device] the whole run took {time.perf_counter() - t0:.1f} s (the "
+        f"kernels' build included)")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

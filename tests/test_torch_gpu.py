@@ -490,3 +490,122 @@ def test_env_frame_on_card_matches_cpu(cuda, env_cpu, frame):
     out, ref = outs
     assert torch.equal(out["tri_id"].cpu(), ref["tri_id"])
     assert float((out["ldr"].cpu() - ref["ldr"]).abs().max()) <= 3e-4
+
+
+# the engine's default passes, card vs CPU: the AO's blur and upsample
+# weights go through exp, which the card rounds otherwise; the palette
+# path's 4x4 inverse (cuSOLVER vs LAPACK); the SSR history carries both
+AO_TOL, MOTION_TOL, HIST_TOL = 1e-5, 2e-5, 1e-4
+
+
+def _record_selections(rec: dict):
+    """Wrap ssao._gather / ssr._gather and ssr.trace_reflections so that
+    every pyramid fetch index and every trace's final texels (a trace of a
+    colour holding each pixel's index) land in rec; -> the restore."""
+    from vqengine_tpu_torch.ops import ssao, ssr
+    saved = (ssao._gather, ssr._gather, ssr.trace_reflections)
+    gather, trace = saved[0], saved[2]
+
+    def g(flat, idx):
+        rec.setdefault("fetch", []).append(idx.cpu())
+        return gather(flat, idx)
+
+    def t(color, *a, **k):
+        h, w = color.shape[:2]
+        enc = torch.zeros_like(color)
+        enc[..., 0] = torch.arange(h * w, dtype=torch.float32,
+                                   device=color.device).reshape(h, w)
+        rec.setdefault("texel", []).append(trace(enc, *a, **k)[0][..., 0].cpu())
+        return trace(color, *a, **k)
+    ssao._gather = ssr._gather = g
+    ssr.trace_reflections = t
+
+    def restore():
+        ssao._gather, ssr._gather, ssr.trace_reflections = saved
+    return restore
+
+
+@pytest.mark.parametrize("ids", [(), None], ids=["static", "palette"])
+def test_engine_default_frames_on_card_match_cpu(cuda, env_cpu, ids):
+    """The engine's default flags (MSAA, SSAO "medium", motion vectors, SSR)
+    on the Default scene at 192x108 with the CPU's environment tables and
+    cached 64^2 ESM maps, two frames whose camera turns and whose SSR
+    history carries, motion on the
+    static and on the palette path (one more K3 launch a frame): every
+    pyramid fetch and SSR hit texel equal to the CPU's, ldr within 3e-4,
+    ao, motion and ssr_history within their bars."""
+    from vqengine_tpu_torch.engine.settings import FGraphicsSettings, render_flags
+    s = load_scene("Default", 192, 108)
+    flags = dict(render_flags(FGraphicsSettings()), dynamic_item_ids=ids,
+                 shadow_dims=(64, 64, 64))
+    cam = s.cameras[0]
+    sides = []
+    for d in (cuda, torch.device("cpu")):
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        r.env = env_cpu[1].to(d)
+        c = r.build_frame_constants(s.buffers, cam, s.lights)
+        sides.append((r, r.precompute_shadow_maps(c, (64, 64, 64))))
+    hist, prev = [None, None], None
+    for turn in (0.0, 3.0):
+        cam.yaw += turn
+        outs, recs = [], []
+        for i, (r, maps) in enumerate(sides):
+            c = r.build_frame_constants(s.buffers, cam, s.lights,
+                                        prev_view_proj=prev)
+            rec = {}
+            restore = _record_selections(rec)
+            before = _backend.launches["palette"]
+            try:
+                outs.append(r.render(c, 192, 108, ssr_history=hist[i],
+                                     shadow_maps=maps, **flags))
+            finally:
+                restore()
+            if i == 0:
+                assert _backend.launches["palette"] - before == (4 if ids == () else 5)
+            recs.append(rec)
+        prev = c.view_proj.numpy()
+        for k in ("fetch", "texel"):
+            assert len(recs[0][k]) == len(recs[1][k]) > 0
+            assert all(torch.equal(a, b) for a, b in zip(recs[0][k], recs[1][k])), k
+        out, ref = outs
+        bars = {"ldr": 3e-4, "ao": AO_TOL, "motion": MOTION_TOL,
+                "ssr_history": HIST_TOL}
+        for k, bar in bars.items():
+            assert float((out[k].cpu() - ref[k]).abs().max()) <= bar, k
+        hist = [o["ssr_history"] for o in outs]
+    assert float(outs[0]["motion"].abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("preset", ["lowest", "low", "medium", "high", "adaptive"])
+def test_ssao_presets_on_card_match_cpu(cuda, preset):
+    """render_forward's SSAO branch with each preset on the Default scene
+    at 192x108 (no environment, shadows off): every tap fetch equal to the
+    CPU's, the AO within AO_TOL, the saturation equal."""
+    s = load_scene("Default", 192, 108)
+    outs, recs = [], []
+    for d in (cuda, torch.device("cpu")):
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        c = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
+        rec = {}
+        restore = _record_selections(rec)
+        try:
+            outs.append(r.render(c, 192, 108, env=None, enable_shadows=False,
+                                 enable_ssao=True, ssao_quality=preset))
+        finally:
+            restore()
+        recs.append(rec)
+    assert all(torch.equal(a, b) for a, b in zip(recs[0]["fetch"], recs[1]["fetch"]))
+    assert float((outs[0]["ao"].cpu() - outs[1]["ao"]).abs().max()) <= AO_TOL
+    for k, v in outs[1]["saturation"].items():
+        assert float(outs[0]["saturation"][k]) == float(v), k
+
+
+@pytest.mark.parametrize("golden", ["default_ssao", "default_ssr"])
+def test_default_goldens_on_card(cuda, golden):
+    """The goldens default_ssao and default_ssr rendered on the card, within
+    the bars of engine/goldens.py."""
+    from vqengine_tpu_torch.engine.goldens import golden_scores, render_golden
+    s = golden_scores(golden, render_golden(golden, cuda))
+    assert s["ok"], s

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from test_torch_msaa import _EXACT
 from test_torch_slice import compiled_rasters, jax_load_scene
@@ -330,7 +331,7 @@ def test_brdf_integration_lut_matches_jax(ref_env):
     """The 32^2 LUT of 512 samples accumulated in order: the reference's
     lax.scan body is compiled (XLA contracts its multiply-adds), so the
     sums differ in the last bits; within 1e-5."""
-    out = tb.brdf_integration_lut(SIZES["lut_size"], 512)
+    out = tb.brdf_integration_lut(SIZES["lut_size"], 512, device=CPU)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_env.brdf_lut),
                                rtol=0, atol=1e-5)
 
@@ -579,7 +580,7 @@ def _prop_rough_metal_reflects_env_color():
     diff = ti.diffuse_irradiance_cube(env, size=8, source_width=32)
     mips = ti.specular_prefilter_mips(env, base_size=16, num_mips=3,
                                       source_width=32)
-    lut = tb.brdf_integration_lut(size=16, num_samples=32)
+    lut = tb.brdf_integration_lut(size=16, num_samples=32, device=CPU)
     n = torch.tensor([[0.0, 1.0, 0.0]])
     out = ti.environment_illumination(
         n, n.clone(), torch.tensor([0.5]), torch.tensor([1.0]),
@@ -625,7 +626,7 @@ def _prop_sh9_constant_env_exact():
 
 
 def _prop_brdf_poly_fit_error_vs_lut():
-    lut = ti.brdf_lut_cached(64, num_samples=128).numpy()
+    lut = ti.brdf_lut_cached(64, num_samples=128, device=CPU).numpy()
     coeffs = torch.from_numpy(ti.brdf_poly_fit(lut))
     g = (np.arange(64) + 0.5) / 64
     nv, r = np.meshgrid(g, g, indexing="xy")
@@ -710,8 +711,9 @@ def test_env_frame_sky_and_layers(frames):
 def test_envmap_unit_test_golden_on_port():
     """The envmap_unit_test golden through the port on the CPU, its
     environment maps built at the engine's default sizes (row-chunked)."""
-    s = golden_scores("envmap_unit_test",
-                      render_golden("envmap_unit_test", CPU))
+    with threadpool_limits(limits=1):   # the LUT fit's BLAS, on a loaded host
+        s = golden_scores("envmap_unit_test",
+                          render_golden("envmap_unit_test", CPU))
     assert s["ok"], s
 
 

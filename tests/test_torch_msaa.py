@@ -419,6 +419,31 @@ def test_msaa_edge_secondary_shadowed_matches_jax(quads):
     assert float((rgb1 - rgb).abs().max()) > 1e-3
 
 
+def test_msaa_edge_secondary_ao_matches_jax(quads):
+    """The "shade" edge resolve with SSAO (graph.py:1353-1356): given the
+    same seeded AO map, _msaa_edge_secondary on each side's quads
+    G-buffer multiplies the secondary surface's ambient term by the AO at
+    its pixel: the secondary weight equal, its color within GBUF_TOL, and
+    another AO map gives another color."""
+    depth, tri_id, attrs, mask, cov = quads["geo"]
+    r_depth, r_tri_id, r_attrs, r_mask, r_cov = quads["ref"]["geo"]
+    ao = np.random.default_rng(10).uniform(0.2, 1.0, (H, W)).astype(np.float32)
+    w, rgb = tg._msaa_edge_secondary(
+        quads["ts"], quads["tc"], attrs, tri_id, depth, mask, cov,
+        None, None, None, W, H, False, ao_map=torch.from_numpy(ao))
+    r_w, r_rgb = jg._msaa_edge_secondary(
+        quads["jscene"], quads["jc"], None, None, r_attrs, r_tri_id, r_depth,
+        r_mask, r_cov, jnp.asarray(ao), None, None, None, None, W, H, 0,
+        None, False)
+    assert_bitwise(w, r_w, "w_sec")
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(r_rgb), rtol=0,
+                               atol=GBUF_TOL)
+    _, rgb1 = tg._msaa_edge_secondary(
+        quads["ts"], quads["tc"], attrs, tri_id, depth, mask, cov,
+        None, None, None, W, H, False)
+    assert float((rgb1 - rgb).abs().max()) > 1e-4
+
+
 def test_hello_cube_msaa_frame_matches_jax(cube):
     """HelloCube at 192x108 with MSAA and the default (neighbor) edge
     resolve: ldr within 3e-4 of the reference, tri_id equal."""

@@ -211,6 +211,7 @@ def test_golden(name, golden):
 
 _NO_JAX = """
 import sys, torch
+torch.set_num_threads(1)
 from vqengine_tpu_torch.engine.scene_load import load_scene
 from vqengine_tpu_torch.render.renderer import VQRendererTorch
 s = load_scene("Sponza", 64, 64, material_alpha={"SponzaBrass": 0.5})
@@ -254,7 +255,7 @@ def entry_cpu():
     dict(cas_sharpness=0.5),
     dict(out_width=2 * WIDTH, out_height=2 * HEIGHT)])
 def test_unported_features_raise(entry_cpu, kw):
-    """Features of later slices raise. Three cases, ported since, now hold
+    """Features of later slices raise. Six cases, ported since, now hold
     the reference's behaviour instead: enable_alpha_mask without textures
     renders the frame without it (the reference's alpha_test needs
     textures); the entry scene as its own transparent part renders the
@@ -262,8 +263,31 @@ def test_unported_features_raise(entry_cpu, kw):
     the opaque depth, and the peel's window is open: coplanar transparent
     fragments drop, as in the reference); an environment (a small
     procedural sky's maps) lights the frame and puts the skydome behind
-    it (tests/test_torch_ibl.py holds it against the reference)."""
+    it (tests/test_torch_ibl.py holds it against the reference);
+    enable_ssao darkens the ambient term and returns out["ao"],
+    enable_ssr returns out["ssr_history"] and changes the frame once the
+    entry scene's material is glossy (its roughness of 0.8 gives the
+    composite no weight), and
+    enable_motion_vectors returns out["motion"] and leaves the frame as it
+    is (tests/test_torch_ssao.py and tests/test_torch_ssr.py hold them
+    against the reference)."""
     scene, consts = entry_cpu
+    post = {"enable_ssao": "ao", "enable_ssr": "ssr_history",
+            "enable_motion_vectors": "motion"}
+    if set(kw) & set(post):
+        key = post[next(iter(kw))]
+        if key == "ssr_history":
+            mats = scene.materials.clone()
+            mats[:, 12] = 0.1
+            scene = dataclasses.replace(scene, materials=mats)
+        base = tg.render_forward(scene, consts, WIDTH, HEIGHT)
+        out = tg.render_forward(scene, consts, WIDTH, HEIGHT, **kw)
+        assert key in out and key not in base
+        assert bool(torch.isfinite(out[key]).all())
+        assert torch.equal(out["tri_id"], base["tri_id"])
+        changed = not torch.equal(out["ldr"], base["ldr"])
+        assert changed == (key != "motion"), key
+        return
     if "env" in kw:
         env = tg.build_environment(procedural_sky_equirect(32, 16), CPU,
                                    diffuse_size=4, specular_base=8,

@@ -26,18 +26,27 @@ SCENES = {"hello_triangle": ("HelloTriangle", {}),
           "hello_cube": ("HelloCube", {}),
           "hello_cube_msaa": ("HelloCube", {"msaa": True}),
           "default_scene": ("Default", {"shadow_dims": (64, 64, 64)}),
+          "default_ssao": ("Default", {"shadow_dims": (64, 64, 64),
+                                       "enable_ssao": True}),
+          "default_ssr": ("Default", {"shadow_dims": (64, 64, 64),
+                                      "enable_ssr": True}),
           "default_pcf": ("Default", {"shadow_dims": (128, 64, 128),
                                       "shadow_filter": "pcf"}),
           "envmap_unit_test": ("EnvironmentMapUnitTest", {})}
 SSIM_MIN, MEAN_MAE_MAX, BLOCK_MAE_MAX = 0.985, 0.01, 0.08
 
 
-def render_golden(golden: str, device: torch.device) -> np.ndarray:
-    """-> ldr [HEIGHT, WIDTH, 3] of the golden's scene, on the host."""
+def render_golden(golden: str, device: torch.device, env=None) -> np.ndarray:
+    """-> ldr [HEIGHT, WIDTH, 3] of the golden's scene, on the host. env:
+    the scene's environment maps when the caller has built them
+    (graph.build_environment of its equirect at the default sizes), else
+    they are built at load."""
     name, flags = SCENES[golden]
     s = load_scene(name, WIDTH, HEIGHT, draw_light_gizmos=True)
     r = VQRendererTorch(device)
-    r.load_scene(s.buffers, equirect=s.equirect)
+    r.load_scene(s.buffers, equirect=s.equirect if env is None else None)
+    if env is not None:
+        r.env = env
     consts = r.build_frame_constants(s.buffers, s.cameras[0], s.lights)
     return r.render(consts, WIDTH, HEIGHT, **flags)["ldr"].cpu().numpy()
 

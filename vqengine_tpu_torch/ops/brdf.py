@@ -174,11 +174,17 @@ def importance_sample_ggx(xi: torch.Tensor, n: torch.Tensor,
                      + n * h_t[..., 2:3])
 
 
+# integrate_brdf computes its samples' terms this many at a time (fewer,
+# larger launches; the same values: each term is its own elementwise chain)
+LUT_SAMPLE_CHUNK = 32
+
+
 def integrate_brdf(ndotv: torch.Tensor, roughness: torch.Tensor,
                    num_samples: int = 512) -> torch.Tensor:
     """Split-sum BRDF integration -> (F0 scale, F0 bias) (BRDF.hlsl:239-283).
     ndotv/roughness [...] -> [..., 2]; the samples accumulate one after
-    another, in the order of the reference's lax.scan."""
+    another, in the order of the reference's lax.scan, their terms computed
+    LUT_SAMPLE_CHUNK samples at a time."""
     ndotv = torch.clamp(ndotv, min=1e-4)
     v = torch.stack([torch.sqrt(1.0 - ndotv * ndotv), torch.zeros_like(ndotv),
                      ndotv], dim=-1)
@@ -187,8 +193,10 @@ def integrate_brdf(ndotv: torch.Tensor, roughness: torch.Tensor,
     scale = torch.zeros_like(ndotv)
     bias = torch.zeros_like(ndotv)
     zero = torch.zeros_like(ndotv)
-    for s in range(num_samples):
-        h = importance_sample_ggx(xi[s], n, roughness)
+    for s0 in range(0, num_samples, LUT_SAMPLE_CHUNK):
+        x = xi[s0:s0 + LUT_SAMPLE_CHUNK]
+        h = importance_sample_ggx(x.reshape((x.shape[0],) + (1,) * ndotv.ndim + (2,)),
+                                  n, roughness)
         l = normalize(reflect(-v, h))
         ndotl = torch.clamp(l[..., 2], min=0.0)
         ndoth = torch.clamp(h[..., 2], min=0.0)
@@ -198,15 +206,19 @@ def integrate_brdf(ndotv: torch.Tensor, roughness: torch.Tensor,
                             min=1e-4)
         fc = _pow5(1.0 - vdoth)
         lit = ndotl > 0
-        scale = scale + torch.where(lit, (1.0 - fc) * g_vis, zero)
-        bias = bias + torch.where(lit, fc * g_vis, zero)
+        d_scale = torch.where(lit, (1.0 - fc) * g_vis, zero)
+        d_bias = torch.where(lit, fc * g_vis, zero)
+        for k in range(x.shape[0]):
+            scale = scale + d_scale[k]
+            bias = bias + d_bias[k]
     return torch.stack([scale, bias], dim=-1) / num_samples
 
 
-def brdf_integration_lut(size: int = 256, num_samples: int = 512,
-                         device: torch.device | str = "cpu") -> torch.Tensor:
+def brdf_integration_lut(size: int = 256, num_samples: int = 512, *,
+                         device: torch.device | str) -> torch.Tensor:
     """The BRDF_INTEGRATION_CS LUT (BRDF.hlsl:239-283; created once at load,
-    Renderer.h:77-84): [size, size, 2], x: NdotV, y: roughness."""
+    Renderer.h:77-84) on `device` (no default: the caller names where it is
+    computed): [size, size, 2], x: NdotV, y: roughness."""
     g = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) / size
     r, nv = torch.meshgrid(g, g, indexing="ij")
     return integrate_brdf(nv, r, num_samples)

@@ -312,8 +312,8 @@ def sh9_eval(normal: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
 _BRDF_LUT_CACHE: dict = {}
 
 
-def brdf_lut_cached(size: int = 256, num_samples: int = 512,
-                    device: torch.device | str = "cpu") -> torch.Tensor:
+def brdf_lut_cached(size: int = 256, num_samples: int = 512, *,
+                    device: torch.device | str) -> torch.Tensor:
     """Process-cached BRDF integration LUT on `device` (computed once per
     size, sample count and device, there, like the reference's procedural
     BRDF_INTEGRATION_LUT texture, Renderer.h:77-84)."""

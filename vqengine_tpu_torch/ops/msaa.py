@@ -92,9 +92,9 @@ def resolve_secondary(records: torch.Tensor, tri_id: torch.Tensor,
     edge = score > thr
     idx, count, demand = sparse.compact_indices(edge, cap, block=8)
     if telemetry is not None:
-        telemetry["msaa_edges"] = demand.to(torch.float32) / cap
-        telemetry["msaa_edges_demand"] = (sparse.block_count(
-            score > EDGE_THRS[0], 8).to(torch.float32) * 8 / cap)
+        telemetry["msaa_edges"] = raster.div_true(demand.to(torch.float32), cap)
+        telemetry["msaa_edges_demand"] = raster.div_true(sparse.block_count(
+            score > EDGE_THRS[0], 8).to(torch.float32) * 8, cap)
     lane = torch.arange(cap, device=idx.device)
     live = sparse.gather_pixels(edge, idx) & (lane < count)
 

@@ -68,6 +68,23 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def scalar_on(x, device) -> torch.Tensor:
+    """A Python number as a 0-d f32 tensor on `device`, filled there (no
+    host-to-device copy, so no device sync)."""
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def div_true(a, b) -> torch.Tensor:
+    """a / b rounded once, as the reference divides (a Python number
+    becomes a device scalar: on a card PyTorch turns x / c into x * (1 / c),
+    which rounds otherwise unless c is a power of two)."""
+    if not isinstance(a, torch.Tensor):
+        a = scalar_on(a, b.device)
+    if not isinstance(b, torch.Tensor):
+        b = scalar_on(b, a.device)
+    return a / b
+
+
 def sample_offset(a: torch.Tensor, b: torch.Tensor, dx: float,
                   dy: float) -> torch.Tensor:
     """a*dx + b*dy for a sample offset (dx, dy), rounded as the reference's

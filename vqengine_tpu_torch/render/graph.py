@@ -1,8 +1,9 @@
 """The forward render graph — counterpart of ``vqengine_tpu/render/graph.py``
 for the main path: cull + LOD, raster front end, G-buffer raster (with or
-without MSAA), material fetch, shadow maps and shadow tests, direct-light
-and environment (IBL) shading, the MSAA edge resolve, the skydome or clear
-color background, the depth-peeled transparent pass (and the alpha-mask
+without MSAA), material fetch, SSAO, motion vectors, shadow maps and shadow
+tests, direct-light and environment (IBL) shading, the MSAA edge resolve,
+the skydome or clear color background, screen-space reflections with their
+temporal history, the depth-peeled transparent pass (and the alpha-mask
 peel) and tonemap; the environment maps' load-time build.
 
 PyTorch runs eagerly, so a render graph here is a plain function of
@@ -19,8 +20,10 @@ import numpy as np
 import torch
 
 from ..ops import colorspace as cs
-from ..ops import culling, ibl, palette, raster, shading, shadow, sparse
+from ..ops import culling, ffx, ibl, palette, raster, shading, shadow, sparse
 from ..ops import msaa as msaa_ops
+from ..ops import ssao as ssao_ops
+from ..ops import ssr as ssr_ops
 from ..ops import postprocess as pp
 
 # capacity of the MSAA edge compaction: frame pixels / MSAA_EDGE_CAP_FRAC,
@@ -367,7 +370,8 @@ def geometry_pass(scene: DeviceScene, consts: FrameConstants,
     binned = raster.bin_triangles(setup, width, height, extra=extra,
                                   pair_capacity=pair_capacity)
     if tel is not None:
-        tel["raster_pairs"] = binned.demand.to(torch.float32) / binned.pair_cap
+        tel["raster_pairs"] = raster.div_true(binned.demand.to(torch.float32),
+                                              binned.pair_cap)
     coverage = None
     if msaa:
         depth, tri_id, gbuf, coverage = raster.rasterize_gbuf(
@@ -404,16 +408,91 @@ def material_pass(wnrm: torch.Tensor, mrow: torch.Tensor,
 
 
 def pool2(x: torch.Tensor, reduce: str = "mean") -> torch.Tensor:
-    """2x2 downsample of [H, W, ...]; a 2x2 block (a b / c d) sums as
-    ((a + b) + c) + d, as XLA reduces the reference's reshape on the
+    """2x2 downsample of [H, W, ...]: ffx.reduce2, which sums a 2x2 block
+    in XLA's CPU order for the reference's reshape."""
+    return ffx.reduce2(x, reduce)
+
+
+def up2_fit(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """2x nearest upsample of [Hq, Wq, ...] fitted to exactly (h, w): odd
+    targets get an edge-replicated last row or column."""
+    y = x.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)[:h, :w]
+    if y.shape[0] < h:
+        y = torch.cat([y, y[-1:].expand(h - y.shape[0], *y.shape[1:])], dim=0)
+    if y.shape[1] < w:
+        y = torch.cat([y, y[:, -1:].expand(y.shape[0], w - y.shape[1],
+                                           *y.shape[2:])], dim=1)
+    return y
+
+
+def _mat4_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., 4, 4] @ b [..., 4, 4], each entry an FMA chain over j, as
+    XLA rounds the reference's 4x4 `@` and its einsum "nij,njk->nik" on the
     CPU."""
-    h = x.shape[0] // 2 * 2
-    w = x.shape[1] // 2 * 2
-    a, b = x[0:h:2, 0:w:2], x[0:h:2, 1:w:2]
-    c, d = x[1:h:2, 0:w:2], x[1:h:2, 1:w:2]
-    if reduce == "min":
-        return torch.minimum(torch.minimum(a, b), torch.minimum(c, d))
-    return (((a + b) + c) + d) / 4.0
+    acc = a[..., :, 0, None] * b[..., None, 0, :]
+    for j in range(1, 4):
+        acc = raster._fma(a[..., :, j, None], b[..., None, j, :], acc)
+    return acc
+
+
+def _xyw_rows(m: torch.Tensor) -> torch.Tensor:
+    """Rows 0, 1 and 3 (x, y, w) of [..., 4, 4] (slices: no index tensor to
+    copy to the device)."""
+    return torch.cat([m[..., 0:2, :], m[..., 3:4, :]], dim=-2)
+
+
+def _clip_xyw(rows: torch.Tensor, wpos: torch.Tensor) -> torch.Tensor:
+    """rows [3, 4] (the x, y, w rows of a clip transform) x (wpos, 1) ->
+    [..., 3], the four products summed in pairs as XLA sums the reference's
+    einsum "ij,hwj->hwi" on the CPU."""
+    x, y, z = wpos.unbind(-1)
+    return torch.stack([(rows[i, 0] * x + rows[i, 1] * y)
+                        + (rows[i, 2] * z + rows[i, 3]) for i in range(3)], dim=-1)
+
+
+def motion_vectors(scene: DeviceScene, consts: FrameConstants,
+                   wpos: torch.Tensor, tri_id: torch.Tensor, mask: torch.Tensor,
+                   item_id: torch.Tensor | None = None,
+                   dynamic_item_ids: tuple | None = None) -> torch.Tensor:
+    """NDC-space motion [H, W, 2] = curr.xy/w - prev.xy/w at the resolved
+    surface (ForwardLighting.hlsl:385-388), 0 off the mask. The previous
+    position follows rigid motion: prev_world @ inv(world) per item.
+
+    dynamic_item_ids (the items whose transform changed): static geometry
+    reprojects by prev_view_proj alone and each listed item overrides its
+    pixels with its own rows, so a static camera gives exactly 0. None (or
+    more than 16 items) takes the palette path: each item's folded
+    prev_view_proj @ delta rows [N, 12] fetched per pixel by K3. item_id:
+    the per-pixel item ids of the G-buffer (else gathered from tri_id)."""
+    curr_clip = _clip_xyw(_xyw_rows(consts.view_proj), wpos)
+    if dynamic_item_ids is not None and len(dynamic_item_ids) > 16:
+        dynamic_item_ids = None
+    if item_id is None and (dynamic_item_ids is None or len(dynamic_item_ids)):
+        item_id = scene.tri_item[tri_id.clamp(min=0).long()]
+    if dynamic_item_ids is not None:
+        prev_clip = _clip_xyw(_xyw_rows(consts.prev_view_proj), wpos)
+        for i in dynamic_item_ids:
+            delta_i = _mat4_fma(consts.prev_world[i],
+                                torch.linalg.inv_ex(consts.world[i])[0])
+            rows_i = _xyw_rows(_mat4_fma(consts.prev_view_proj, delta_i))
+            prev_clip = torch.where((item_id == i)[..., None],
+                                    _clip_xyw(rows_i, wpos), prev_clip)
+    else:
+        delta = _mat4_fma(consts.prev_world, torch.linalg.inv_ex(consts.world)[0])
+        rows = _xyw_rows(raster.world_view_proj(consts.prev_view_proj, delta))
+        dm = palette.palette_lookup(item_id, rows.reshape(-1, 12).contiguous()) \
+            .reshape(item_id.shape + (3, 4))
+        x, y, z = wpos.unbind(-1)
+        # "hwij,hwj->hwi": an FMA chain over j; the last term's factor is 1
+        prev_clip = torch.stack([dm[..., i, 3] + raster._fma(
+            dm[..., i, 2], z, raster._fma(dm[..., i, 1], y, dm[..., i, 0] * x))
+            for i in range(3)], dim=-1)
+
+    def safe_w(c):
+        w = c[..., 2:3]
+        return torch.where(torch.abs(w) > 1e-9, w, torch.full_like(w, 1e-9))
+    motion = curr_clip[..., :2] / safe_w(curr_clip) - prev_clip[..., :2] / safe_w(prev_clip)
+    return torch.where(mask[..., None], motion, torch.zeros_like(motion))
 
 
 SHADOW_DIMS = (shadow.SPOT_SHADOW_DIM, shadow.POINT_SHADOW_DIM,
@@ -613,13 +692,15 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
                          cov_s: torch.Tensor, spot_vis, point_vis, dir_vis,
                          width: int, height: int, enable_shadows: bool,
                          telemetry: dict | None = None,
-                         env: EnvironmentMaps | None = None):
+                         env: EnvironmentMaps | None = None,
+                         ao_map: torch.Tensor | None = None):
     """The "shade" MSAA edge resolve: the secondary surface of each edge
     pixel (msaa.resolve_secondary) interpolated from its record at the
     pixel center (raster.interp_record_attrs), unprojected from its depth,
     and shaded by the same material, environment and direct-light path as
     the primary on the compacted list; shadow visibility is the pixel's
-    own. -> (w_sec [H, W], sec_rgb [H, W, 3] pre-weighted)."""
+    own, and so is its SSAO term (ao_map [H, W], when given). -> (w_sec
+    [H, W], sec_rgb [H, W, 3] pre-weighted)."""
     cap = msaa_edge_cap(width, height)
     object_id = attrs["ids"][..., 0].to(torch.int32)
     records = attrs["records"]
@@ -639,10 +720,13 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
     def gs(v):                       # [C, H, W] -> [C, cap]
         return torch.stack([v[c].reshape(-1)[idx] for c in range(v.shape[0])])
 
+    ao = consts.ambient_factor * mat["local_ao"]
+    if ao_map is not None:
+        ao = ao * sparse.gather_pixels(ao_map, idx)
     hdr_c = shading.shade_forward(
         world_pos=wpos, normal=mat["normal"], albedo=mat["albedo"],
         roughness=mat["roughness"], metalness=mat["metalness"],
-        emissive=mat["emissive"], ao=consts.ambient_factor * mat["local_ao"],
+        emissive=mat["emissive"], ao=ao,
         camera_pos=consts.camera_pos, point_lights=consts.point_lights,
         spot_lights=consts.spot_lights, spot_extra=consts.spot_extra,
         directional=consts.directional,
@@ -849,6 +933,62 @@ def _alpha_mask_peel(scene: DeviceScene, consts: FrameConstants,
     return depth, tri_id, mask, wpos, n, mat, coverage
 
 
+def ssao_pass(consts: FrameConstants, depth: torch.Tensor, n: torch.Tensor,
+              quality: str = "medium", d_h: torch.Tensor | None = None,
+              telemetry: dict | None = None,
+              tan_half_fov: float | None = None) -> torch.Tensor:
+    """render_forward's SSAO: CACAO-style AO [H, W] from the depth and the
+    unit normals at half resolution ("lowest" and "low" generate at quarter
+    resolution with their tap budget), upsampled by depth (CACAO's
+    edge-aware Apply). d_h: pool2(depth) when the caller has it."""
+    height, width = depth.shape
+    info = {"near": consts.proj_params[0], "far": consts.proj_params[1],
+            "fov_y": consts.proj_params[2], "view": consts.view_matrix}
+    d_h = pool2(depth) if d_h is None else d_h
+    n_h = pool2(n)
+    if quality in ("lowest", "low"):
+        d_q = pool2(d_h)
+        ao = ssao_ops.ssao(d_q, pool2(n_h), info,
+                           num_taps=ssao_ops.PRESETS[quality][0],
+                           tan_half_fov=tan_half_fov)
+        ao = ssao_ops.upsample_bilateral(ao, d_q, d_h)
+    else:
+        taps, extra, deint = ssao_ops.PRESETS.get(quality,
+                                                  ssao_ops.PRESETS["medium"])
+        ao = ssao_ops.ssao(d_h, n_h, info, num_taps=taps, adaptive_taps=extra,
+                           deinterleave=deint, telemetry=telemetry,
+                           tan_half_fov=tan_half_fov)
+    return ssao_ops.upsample_bilateral(ao, d_h, depth)[:height, :width]
+
+
+def ssr_pass(consts: FrameConstants, hdr: torch.Tensor, depth: torch.Tensor,
+             n: torch.Tensor, mat: dict, wpos: torch.Tensor, mask: torch.Tensor,
+             motion: torch.Tensor | None, history: torch.Tensor | None,
+             d_h: torch.Tensor | None = None, telemetry: dict | None = None,
+             tan_half_fov: float | None = None):
+    """render_forward's SSR (SSSR + DNSR + ApplyReflections): the hi-Z
+    march on the quarter-resolution frame, the denoiser and its history at
+    half resolution (reprojected by motion where given), the composite at
+    full resolution on the covered pixels -> (hdr, new history [H/2, W/2,
+    7])."""
+    height, width = depth.shape
+    d_h = pool2(depth) if d_h is None else d_h
+    refl_q, conf_q = ssr_ops.trace_reflections(
+        pool2(pool2(hdr)), pool2(d_h), pool2(pool2(n)), consts.view_matrix,
+        consts.proj_params, telemetry=telemetry, tan_half_fov=tan_half_fov)
+    hh, hw = d_h.shape
+    conf_h = up2_fit(conf_q, hh, hw)
+    refl_dn_h, new_history = ssr_ops.denoise_reflections(
+        up2_fit(refl_q, hh, hw), conf_h, pool2(mat["roughness"]),
+        history=history, motion=None if motion is None else pool2(motion),
+        depth=d_h)
+    hdr_refl = ssr_ops.apply_reflections(
+        hdr, up2_fit(refl_dn_h, height, width), up2_fit(conf_h, height, width),
+        mat["roughness"], mat["metalness"], mat["albedo"], n,
+        unit3(consts.camera_pos - wpos))
+    return torch.where(mask[..., None], hdr_refl, hdr), new_history
+
+
 def render_forward(scene: DeviceScene, consts: FrameConstants,
                    width: int, height: int,
                    output_display_curve: int = cs.DISPLAY_CURVE_SRGB,
@@ -861,6 +1001,7 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                    textures=None,
                    msaa: bool = False,
                    enable_ssr: bool = False,
+                   ssr_history: torch.Tensor | None = None,
                    out_width: int | None = None,
                    out_height: int | None = None,
                    cas_sharpness: float | None = None,
@@ -868,20 +1009,32 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                    shadow_maps: dict | None = None,
                    enable_alpha_mask: bool = False,
                    scene_transparent: DeviceScene | None = None,
+                   ssao_quality: str = "medium",
                    msaa_edge_resolve: bool | str = True,
+                   dynamic_item_ids: tuple | None = None,
                    pair_capacity: int | None = None) -> dict:
-    """Forward frame: geometry -> material -> shadows -> shade (lights and,
-    with env, the environment term) -> MSAA edge resolve -> background
-    (the skydome with env, else the clear color) -> tonemap. Returns ldr
-    [H, W, 3], hdr, depth, tri_id, object_id, overflow [3], pair_demand
-    and saturation, as the reference does. With enable_shadows, caster lights are shadowed by
-    maps from `shadow_maps` (render_shadow_maps, cached) or rendered in
-    the frame; without, they drop out, as in the reference. With msaa the
-    G-buffer comes from the MSAA raster and the pixel blends with the
-    background by its covered-sample share; msaa_edge_resolve True or
-    "neighbor" (the default) also splits an edge pixel's covered samples
-    with the secondary surface colored from a neighbor pixel, "shade"
-    shades the secondary surface itself, False keeps the winner alone.
+    """Forward frame: geometry -> SSAO -> motion vectors -> shadows ->
+    shade (lights and, with env, the environment term) -> MSAA edge
+    resolve -> background (the skydome with env, else the clear color) ->
+    SSR -> transparents -> tonemap. Returns ldr [H, W, 3], hdr, depth,
+    tri_id, object_id, overflow [3], pair_demand and saturation, as the
+    reference does, and ao [H, W], motion [H, W, 2] and ssr_history [H/2,
+    W/2, 7] where their passes ran. With enable_shadows, caster lights are
+    shadowed by maps from `shadow_maps` (render_shadow_maps, cached) or
+    rendered in the frame; without, they drop out, as in the reference.
+    With msaa the G-buffer comes from the MSAA raster and the pixel blends
+    with the background by its covered-sample share; msaa_edge_resolve
+    True or "neighbor" (the default) also splits an edge pixel's covered
+    samples with the secondary surface colored from a neighbor pixel,
+    "shade" shades the secondary surface itself, False keeps the winner
+    alone. enable_ssao multiplies the ambient term by CACAO-style AO at
+    half resolution (ssao_quality: "lowest" and "low" generate at quarter
+    resolution), upsampled by depth. enable_motion_vectors adds the NDC
+    motion against prev_world / prev_view_proj (dynamic_item_ids: see
+    motion_vectors). enable_ssr composites hi-Z reflections traced at
+    quarter resolution and denoised at half resolution against
+    ssr_history (the previous frame's out["ssr_history"], reprojected by
+    the motion vectors when they are on; None starts afresh).
     scene_transparent (the transparent part of split_transparent) is
     depth-peeled in two layers in front of the opaque depth and blended
     over the frame before tonemap (transparent_pass). enable_alpha_mask
@@ -890,8 +1043,6 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
     it, as in the reference."""
     unported = {
         "textures": textures is not None,
-        "enable_ssao": enable_ssao, "enable_ssr": enable_ssr,
-        "enable_motion_vectors": enable_motion_vectors,
         "cas_sharpness": cas_sharpness is not None,
         "resize": ((out_width is not None and out_width != width)
                    or (out_height is not None and out_height != height)),
@@ -914,12 +1065,28 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
         depth, tri_id, mask, attrs["wpos"], n, mat, coverage = _alpha_mask_peel(
             scene, consts, geo[5], width, height, depth, tri_id, mask,
             attrs["wpos"], n, mat, coverage)
+    th = (ssao_ops.tan_half(consts.proj_params[2])
+          if enable_ssao or enable_ssr else None)
+    d_h = pool2(depth) if enable_ssao or enable_ssr else None
+    ao_map = None
+    if enable_ssao:
+        ao_map = ssao_pass(consts, depth, n, ssao_quality, d_h=d_h,
+                           telemetry=tel, tan_half_fov=th)
+    motion = None
+    if enable_motion_vectors:
+        # post-peel item ids: a pixel re-resolved past a discarded cutout
+        # carries the revealed surface's item
+        motion = motion_vectors(scene, consts, attrs["wpos"], tri_id, mask,
+                                item_id=mat["item_id"].to(torch.int32),
+                                dynamic_item_ids=dynamic_item_ids)
     spot_vis = point_vis = dir_vis = None
     if enable_shadows:
         spot_vis, point_vis, dir_vis = shadow_pass(
             scene, consts, attrs["wpos"], n, shadow_dims, shadow_filter,
             shadow_maps=shadow_maps)
     ao = consts.ambient_factor * mat["local_ao"]
+    if ao_map is not None:
+        ao = ao * ao_map          # SSAO multiplies the ambient term
     env_illum = environment_term(consts, env, attrs["wpos"], n, mat)
     hdr = shading.shade_forward(
         world_pos=attrs["wpos"], normal=n, albedo=mat["albedo"],
@@ -945,7 +1112,7 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                 w_sec, sec_rgb = _msaa_edge_secondary(
                     scene, consts, attrs, tri_id, depth, mask, coverage,
                     spot_vis, point_vis, dir_vis, width, height,
-                    enable_shadows, telemetry=tel, env=env)
+                    enable_shadows, telemetry=tel, env=env, ao_map=ao_map)
             else:
                 w_sec, sec_rgb = _msaa_edge_neighbor(
                     attrs, tri_id, depth, mask, coverage, hdr, width, height,
@@ -958,12 +1125,25 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
         hdr = torch.where((mask | (covm > 0))[..., None], hdr, background)
     else:
         hdr = torch.where(mask[..., None], hdr, background)
+    new_ssr_history = None
+    if enable_ssr:
+        hdr, new_ssr_history = ssr_pass(consts, hdr, depth, n, mat,
+                                        attrs["wpos"], mask, motion,
+                                        ssr_history, d_h=d_h, telemetry=tel,
+                                        tan_half_fov=th)
     if scene_transparent is not None and scene_transparent.num_tris_live > 0:
         hdr = transparent_pass(scene_transparent, consts, hdr, depth,
                                width, height, env=env)
     ldr = pp.tonemap(hdr, output_display_curve, apply_gamma=apply_gamma)
-    return {"ldr": ldr, "hdr": hdr, "depth": depth, "tri_id": tri_id,
-            "object_id": torch.where(mask, mat["object_id"],
-                                     torch.full_like(mat["object_id"], -1)),
-            "overflow": attrs["overflow"], "pair_demand": attrs["pair_demand"],
-            "saturation": tel}
+    out = {"ldr": ldr, "hdr": hdr, "depth": depth, "tri_id": tri_id,
+           "object_id": torch.where(mask, mat["object_id"],
+                                    torch.full_like(mat["object_id"], -1)),
+           "overflow": attrs["overflow"], "pair_demand": attrs["pair_demand"],
+           "saturation": tel}
+    if ao_map is not None:
+        out["ao"] = ao_map
+    if motion is not None:
+        out["motion"] = motion
+    if new_ssr_history is not None:
+        out["ssr_history"] = new_ssr_history
+    return out

@@ -167,15 +167,24 @@ class VQRendererTorch:
 
     def render(self, consts: graph.FrameConstants, width: int, height: int,
                **flags) -> dict:
-        """One forward frame (graph.render_forward; flags such as
-        enable_shadows, shadow_dims, shadow_filter and shadow_maps pass
-        through) at the current pair bucket, lit by the scene's environment
-        maps (env=None renders without them), with the scene's transparent
-        part blended over it; the opaque pass's measured demand then
-        updates the bucket."""
+        """One forward frame (graph.render_forward) at the current pair
+        bucket, lit by the scene's environment maps (env=None renders
+        without them), with the scene's transparent part blended over it;
+        the opaque pass's measured demand then updates the bucket. Flags
+        pass through: enable_shadows, shadow_dims, shadow_filter,
+        shadow_maps, msaa, enable_ssao and ssao_quality,
+        enable_motion_vectors and dynamic_item_ids (a set of more than 16
+        items takes the palette path, as it would in motion_vectors),
+        enable_ssr and ssr_history. The caller carries the history from
+        out["ssr_history"] to the next frame, as the engine does; the
+        renderer keeps none (engine/settings.render_flags maps the engine's
+        graphics settings to these flags)."""
         if self.scene is None:
             raise RuntimeError("load_scene first")
         flags.setdefault("env", self.env)
+        ids = flags.get("dynamic_item_ids")
+        if ids is not None and len(ids) > 16:
+            flags["dynamic_item_ids"] = None
         out = graph.render_forward(self.scene, consts, width, height,
                                    pair_capacity=self.pair_bucket,
                                    scene_transparent=self.scene_t, **flags)

@@ -102,14 +102,39 @@ the final line:
      FGraphicsSettings: MSAA, SSAO "medium", motion vectors, SSR): the
      precompute, then the 16-frame sweep with each frame's prev_view_proj
      the one before's and the SSR history carried, then the same frames
-     without SSR and without SSAO.
+     without SSR and without SSAO; (h) bench.py's textured Sponza stress
+     frame (scene_load.sponza_stress: the .glb colonnade, 220 clutter
+     items, ~278k triangles, five 512^2 maps as quad and pair rows with
+     combined aux maps; 5 spot, 5 point and 1 directional casters; a
+     512x256 procedural sky) at 1920x1080 on its own renderer: the host
+     time of building the scene and its textures, the precompute of its 36
+     caster views (timed), the pair capacity from probe_pair_demand over
+     the bench camera's sweep; before the timed runs, each K2 launch of
+     the precompute and each K1 and K3 launch of one frame with the walk
+     held against its plain version on those same inputs (checked_launches:
+     ids, depths, coverage and rows bitwise, the G-buffer within GBUF_TOL;
+     `[stress]` lines, one per launch); then 16 frames of the engine's default
+     flags with the textures and the aniso-8 walk (tex_aniso and
+     tex_aniso_demand per frame) and the same 16 frames with aniso_taps=0
+     (the engine's own setting).
      Overflow 0 and finite output; ms/frame, peak memory, launches,
      saturation; `[time]` lines give each phase's finish time.
+  8c. the texture slice at 192x108 and 96x54, card against CPU
+     (`[texture]` lines): the textured_quad golden's scene (dense aniso 2),
+     the gltf_roundtrip golden's .glb still life (stochastic trilinear) and
+     goldens.atrium_scene (pair rows, combined aux maps, the aniso-8 walk
+     on a grazing floor; its slot-3 alpha mask peeled through K1-bounded,
+     its textured glass layers, without MSAA, with MSAA, and the "shade"
+     resolve): tri_id equal, ldr within ENTRY_TOL, the texture telemetry
+     equal and every tap's mip level and row equal; each K1-bounded launch
+     held bitwise against its plain version. The goldens (8) include
+     textured_quad, gltf_roundtrip and sponza.
 `--profile` adds stage rows (among them the environment term, the
-skydome, the environment build, SSAO, motion vectors and the SSR trace,
-denoise and composite) and traces the default frame of path (e) (no
-SSAO, SSR or motion) and the full default frame of (g) (device ops and
-idle share of each).
+skydome, the environment build, SSAO, motion vectors, the SSR trace,
+denoise and composite, and the stress frame's material pass with and
+without textures) and traces the default frame of path (e) (no SSAO, SSR
+or motion), the full default frame of (g) and the stress frame of (h)
+(device ops and idle share of each).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -929,10 +954,10 @@ def phase_env_card_vs_cpu(dev, env_cpu) -> None:
 
 
 def phase_goldens(dev) -> None:
-    from vqengine_tpu_torch.engine.goldens import (SCENES, golden_scores,
-                                                    render_golden)
+    from vqengine_tpu_torch.engine.goldens import (SCENES, TEXTURED,
+                                                    golden_scores, render_golden)
     from vqengine_tpu_torch.entry import entry
-    for golden in SCENES:
+    for golden in (*SCENES, *TEXTURED):
         s = golden_scores(golden, render_golden(golden, dev))
         say(f"[golden] {golden}: SSIM {s['ssim']:.5f}, mean MAE "
             f"{s['mean_mae']:.5f}, worst block {s['block_mae']:.5f}")
@@ -1158,6 +1183,396 @@ def phase_post_card_vs_cpu(dev, env_cpu) -> None:
     cam.yaw = base_yaw
 
 
+@contextlib.contextmanager
+def recorded_taps(rec: list):
+    """While the context lasts, every packed texture tap's level and row
+    index (ops/texture._tap_rows) is appended to rec, in call order."""
+    from vqengine_tpu_torch.ops import texture
+    rows = texture._tap_rows
+
+    def rec_rows(pt, tex_id, uv, lodi, pair):
+        out = rows(pt, tex_id, uv, lodi, pair)
+        rec.append((lodi.long().cpu(), out[0].cpu()))
+        return out
+    texture._tap_rows = rec_rows
+    try:
+        yield rec
+    finally:
+        texture._tap_rows = rows
+
+
+@contextlib.contextmanager
+def recorded_bounded(calls: list):
+    """While the context lasts, the inputs of every K1-bounded launch on a
+    CUDA tensor (binned, width, height, msaa, zbound) are appended to
+    calls."""
+    from vqengine_tpu_torch.ops import raster
+    k1 = raster.rasterize_gbuf
+
+    def rec(binned, width, height, msaa=False, zbound=None):
+        if zbound is not None and zbound[0].is_cuda:
+            calls.append((binned, width, height, msaa, zbound))
+        return k1(binned, width, height, msaa=msaa, zbound=zbound)
+    raster.rasterize_gbuf = rec
+    try:
+        yield calls
+    finally:
+        raster.rasterize_gbuf = k1
+
+
+@contextlib.contextmanager
+def checked_launches(found: dict):
+    """While the context lasts, every K1 (any variant), K2 (either sample
+    mode) and K3 launch on CUDA tensors is followed by its plain version
+    on the same inputs: ids, depths, coverage and K3's rows bitwise, the
+    G-buffer within GBUF_TOL, else the run fails. found[launch name] is
+    (launches checked, max |kernel - plain|, one note per launch)."""
+    from vqengine_tpu_torch.ops import palette, raster
+    k1, k2, k3 = (raster._rasterize_gbuf_cuda, raster._rasterize_cuda,
+                  palette._palette_lookup_cuda)
+
+    def note(name: str, err: float, what: str) -> None:
+        n, e, whats = found.get(name, (0, 0.0, []))
+        found[name] = (n + 1, max(e, err), whats + [what])
+
+    def stream(binned, width, height) -> str:
+        return (f"{width}x{height}: pair demand {int(binned.demand)}, capacity "
+                f"{binned.pair_cap}, {binned.pairs.shape[0] // raster.GROUP} "
+                f"groups")
+
+    def gbuf(binned, width, height, msaa, zbound):
+        out = k1(binned, width, height, msaa, zbound)
+        plain = raster.rasterize_gbuf_plain(binned, width, height, msaa, zbound)
+        name = raster.gbuf_kernel_name(msaa, zbound is not None)
+        torch.cuda.synchronize()
+        for key, a, b in zip(("depth", "tri_id", "gbuf", "coverage"), out, plain):
+            if key != "gbuf" and not bitwise_equal(a, b):
+                fail(f"{name} {stream(binned, width, height)}: {key} differs "
+                     f"on {int((a != b).sum())} values")
+        err = float((out[2] - plain[2]).abs().max())
+        if not err <= GBUF_TOL:
+            fail(f"{name} {stream(binned, width, height)}: gbuf max |kernel - "
+                 f"plain| {err} > {GBUF_TOL}")
+        note(name, err, stream(binned, width, height))
+        return out
+
+    def vis(binned, width, height, msaa):
+        out = k2(binned, width, height, msaa)
+        plain = raster.rasterize_plain(binned, width, height, msaa)
+        name = "raster_vis_msaa4" if msaa else "raster_vis"
+        torch.cuda.synchronize()
+        if not (bitwise_equal(out[0], plain[0]) and bitwise_equal(out[1], plain[1])):
+            fail(f"{name} {stream(binned, width, height)}: kernel != plain on "
+                 f"{int((out[1] != plain[1]).sum())} ids, "
+                 f"{int((out[0] != plain[0]).sum())} depths")
+        note(name, 0.0, stream(binned, width, height))
+        return out
+
+    def lookup(idx, table):
+        out = k3(idx, table)
+        plain = palette.palette_lookup_plain(idx, table)
+        torch.cuda.synchronize()
+        what = f"{idx.numel()} ids into [{table.shape[0]}, {table.shape[1]}]"
+        if not bitwise_equal(out, plain):
+            fail(f"palette {what}: kernel != plain")
+        note("palette", 0.0, what)
+        return out
+    raster._rasterize_gbuf_cuda, raster._rasterize_cuda = gbuf, vis
+    palette._palette_lookup_cuda = lookup
+    try:
+        yield found
+    finally:
+        raster._rasterize_gbuf_cuda, raster._rasterize_cuda = k1, k2
+        palette._palette_lookup_cuda = k3
+
+
+def report_checked(label: str, found: dict, want: dict) -> None:
+    """Print the launches checked_launches held against their plain
+    versions in (h)'s label; fail unless each kernel of want was checked
+    exactly that many times."""
+    for name, n in want.items():
+        if found.get(name, (0,))[0] != n:
+            fail(f"(h) {label}: {found.get(name, (0,))[0]} {name} launches "
+                 f"checked, expected {n}")
+    for name, (n, err, whats) in sorted(found.items()):
+        say(f"[stress] (h) {label}: {name}, {n} launches, each held against "
+            f"its plain version on the same inputs (ids, depths, coverage and "
+            f"rows bitwise; G-buffer max |diff| {err}):")
+        for what in whats:
+            say(f"[stress]     {name} {what}")
+
+
+def texture_frames(d, width: int, height: int) -> dict:
+    """The texture slice's frames at width x height on device d, without
+    shadows or environment: the textured_quad golden's scene (quad-packed
+    maps, dense aniso 2), the gltf_roundtrip golden's .glb still life
+    (stochastic trilinear), and goldens.atrium_scene (pair rows with the
+    combined aux maps and the aniso-8 walk on a grazing floor; then with
+    its slot-3 alpha mask (the peel, K1-bounded) and its textured glass
+    layer, without MSAA, with MSAA, and with the "shade" resolve) ->
+    {label: (outputs on the host, taps, K1-bounded inputs)}."""
+    import numpy as np
+
+    from vqengine_tpu_torch.engine import goldens
+    from vqengine_tpu_torch.ops import texture
+    from vqengine_tpu_torch.render import graph
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    from vqengine_tpu_torch.render.scene_buffers import split_transparent
+    from vqengine_tpu_torch.scene.camera import Camera, FCameraParameters
+    from vqengine_tpu_torch.scene.light import ELightType, Light
+    from vqengine_tpu_torch.utils import math3d as m3
+    r = VQRendererTorch(d)
+    p = FCameraParameters()
+    p.position = np.array([0, 2.0, -5.0], np.float32)
+    p.pitch_deg = 12.0
+    view = (Camera(p, aspect=width / height),
+            [Light(type=ELightType.DIRECTIONAL, brightness=1.5,
+                   rotation=m3.quat_from_euler_xyz_degrees(50, 0, 20))])
+    buffers, levels = goldens.textured_quad_scene()
+    quad = (buffers, None, texture.pack_texture_quads(levels, d), *view)
+    gb, gt = goldens.gltf_roundtrip_scene(d)
+    gltf = (gb, None, gt, *view)
+    ab, at, cam, lights = goldens.atrium_scene(d, aspect=width / height)
+    opaque, transp = split_transparent(ab)
+    atrium = (opaque, transp, at, cam, lights)
+    runs = [("textured_quad, dense aniso 2", quad, dict(aniso_taps=2)),
+            ("gltf_roundtrip, stochastic trilinear", gltf, dict(aniso_taps=0)),
+            ("atrium, pair rows + aniso 8", atrium,
+             dict(aniso_taps=8, transparent=False)),
+            ("atrium, alpha peel + textured glass", atrium,
+             dict(aniso_taps=8, enable_alpha_mask=True)),
+            ("atrium, alpha peel + glass, MSAA", atrium,
+             dict(aniso_taps=8, enable_alpha_mask=True, msaa=True)),
+            ("atrium, alpha peel + glass, MSAA shade resolve", atrium,
+             dict(aniso_taps=8, enable_alpha_mask=True, msaa=True,
+                  msaa_edge_resolve="shade"))]
+    out = {}
+    for label, (b, bt, tex, cam, lights), flags in runs:
+        flags = dict(flags)
+        with_glass = flags.pop("transparent", True)
+        c = r.build_frame_constants(b, cam, lights)
+        taps, bounded = [], []
+        with recorded_taps(taps), recorded_bounded(bounded):
+            o = graph.render_forward(
+                graph.upload_scene(b, d), c, width, height, enable_shadows=False,
+                textures=tex, slots_used=graph.slots_used_of(b.materials),
+                scene_transparent=(graph.upload_scene(bt, d)
+                                   if bt is not None and with_glass else None),
+                **flags)
+        out[label] = ({k: (v.cpu() if isinstance(v, torch.Tensor) else
+                           {s: t.cpu() for s, t in v.items()})
+                       for k, v in o.items() if k in ("ldr", "tri_id", "saturation")},
+                      taps, bounded)
+    return out
+
+
+def phase_texture_card_vs_cpu(dev) -> None:
+    """The texture slice's frames (texture_frames) at 192x108 and 96x54 on
+    the card and on the CPU: tri_id equal, ldr within ENTRY_TOL, the
+    texture telemetry equal, every tap's mip level and row equal; each
+    K1-bounded launch of the alpha peel and the glass layers held bitwise
+    against its plain version. At 96x54 the atrium's anisotropic pixels
+    exceed the walk's 512 lanes and the ladder walks a rung above 1.3; at
+    192x108 (648 lanes) even its top rung overflows and the walk sheds
+    every pixel, on both sides as in the reference: the frame's edge column
+    and the silhouettes, where an edge-clamped gradient vanishes, have
+    ratios near 1e10."""
+    n_bounded = 0
+    for width, height in ((SMALL_W, SMALL_H), (SMALL_W // 2, SMALL_H // 2)):
+        card = texture_frames(dev, width, height)
+        cpu = texture_frames(torch.device("cpu"), width, height)
+        for label, (o, taps, bounded) in card.items():
+            oc, taps_c, _ = cpu[label]
+            if len(taps) != len(taps_c):
+                fail(f"[texture] {label}: {len(taps)} taps on the card, "
+                     f"{len(taps_c)} on the CPU")
+            lanes = sum(int(a[0].numel()) for a in taps)
+            levels = sum(int((a[0] != b[0]).sum()) for a, b in zip(taps, taps_c))
+            rows = sum(int((a[1] != b[1]).sum()) for a, b in zip(taps, taps_c))
+            same = int((o["tri_id"] == oc["tri_id"]).sum())
+            diff = float((o["ldr"] - oc["ldr"]).abs().max())
+            tel = {k: float(v) for k, v in o["saturation"].items()
+                   if k.startswith("tex_")}
+            tel_c = {k: float(v) for k, v in oc["saturation"].items()
+                     if k.startswith("tex_")}
+            for binned, w, h, msaa, zbound in bounded:
+                check_bounded_kernel(binned, w, h, msaa, zbound, f"{label} window")
+            n_bounded += len(bounded)
+            say(f"[texture] {label} {width}x{height}, card vs CPU: tri_id equal "
+                f"on {same}/{width * height}, max |ldr diff| {diff}; {len(taps)} "
+                f"taps over {lanes} lanes: mismatched levels {levels}, rows "
+                f"{rows}; telemetry {tel} (CPU {tel_c}); K1-bounded launches "
+                f"{len(bounded)}, each bitwise against its plain version")
+            if (same != width * height or not diff <= ENTRY_TOL or levels or rows
+                    or tel != tel_c):
+                fail(f"[texture] {label} {width}x{height} card vs CPU")
+            if "aniso 8" in label and width == SMALL_W // 2 and not (
+                    0.0 < tel["tex_aniso"] <= 1.0 < tel["tex_aniso_demand"]):
+                fail(f"[texture] {label} {width}x{height}: the walk's ladder "
+                     f"picked no rung between 1.3 and inf: {tel}")
+    if n_bounded == 0:
+        fail("[texture] the alpha peel launched no K1-bounded kernel")
+
+
+def stress_consts(renderer, buffers, lights, n: int) -> list:
+    """bench.py's camera sweep of the stress frame (the Sponza.xml camera,
+    pitch 15, yaw -90 + 4 sin(0.15 i), fov 60, near 0.5, far 4000), each
+    frame's prev_view_proj the frame before's."""
+    import numpy as np
+
+    from vqengine_tpu_torch.scene.camera import Camera, FCameraParameters
+    p = FCameraParameters()
+    p.position = np.array([700, 170, -50], np.float32)
+    p.pitch_deg = 15.0
+    p.yaw_deg = -90.0
+    p.fov_v_deg = 60.0
+    p.near_z, p.far_z = 0.5, 4000.0
+    cam = Camera(p, aspect=W / H)
+    out, prev = [], None
+    for i in range(n):
+        cam.yaw = -90.0 + 4.0 * math.sin(i * 0.15)
+        c = renderer.build_frame_constants(buffers, cam, lights, prev_view_proj=prev)
+        out.append(c)
+        prev = c.view_proj.cpu().numpy()
+    return out
+
+
+def phase_stress_path(dev, card: str) -> tuple[dict, tuple]:
+    """(h) bench.py's textured Sponza stress frame at 1920x1080
+    (scene_load.sponza_stress: the .glb colonnade, 220 clutter items,
+    five 512^2 maps with combined aux maps and pair rows, 5 spot, 5 point
+    and 1 directional casters) with a 512x256 procedural sky built at the
+    default sizes: the precompute of the 36 caster views (timed), the pair
+    capacity from probe_pair_demand over the sweep (the precompute's K2
+    launches and one frame's K1 and K3 launches held against their plain
+    versions first, uncounted), then 16 frames of the
+    engine's default flags with textures and the aniso-8 walk (the SSR
+    history and prev_view_proj carried), and the same 16 frames with
+    aniso_taps=0 (the engine's own setting: the stochastic single pair
+    tap) -> (launches of the precompute and both sweeps, the objects
+    phase_profile_stress needs)."""
+    from vqengine_tpu_torch.engine.scene_load import sponza_stress
+    from vqengine_tpu_torch.engine.settings import FGraphicsSettings, render_flags
+    from vqengine_tpu_torch.ops import _backend, raster
+    from vqengine_tpu_torch.ops.ibl import procedural_sky_equirect
+    from vqengine_tpu_torch.render import graph
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    t0 = time.perf_counter()
+    buffers, lights, tex = sponza_stress(dev)
+    torch.cuda.synchronize()
+    t_scene = (time.perf_counter() - t0) * 1e3
+    r = VQRendererTorch(dev)
+    t0 = time.perf_counter()
+    r.load_scene(buffers, equirect=procedural_sky_equirect(512, 256), textures=tex)
+    torch.cuda.synchronize()
+    t_load = (time.perf_counter() - t0) * 1e3
+    n_tris = buffers.indices.shape[0]
+    tex_mib = (tex.flat.numel() * 4 + tex.pair_flat.numel() * 4) / 2 ** 20
+    say(f"[stress] (h) the stress scene: {n_tris} triangles, {len(buffers.items)} "
+        f"items, {len(lights)} lights; textures {len(tex.sizes)} levels from "
+        f"{tex.sizes[0]}^2, {tex.flat.shape[0]} quad rows and "
+        f"{tex.pair_flat.shape[0]} pair rows ({tex_mib:.1f} MiB); slots used "
+        f"{r._slots_used}; host time: the scene and its textures "
+        f"(sponza_stress, the packed tables on the card) {t_scene:.1f} ms, the "
+        f"upload and the environment build {t_load:.1f} ms")
+    consts = stress_consts(r, buffers, lights, N_FRAMES)
+    flags = dict(render_flags(FGraphicsSettings()), dynamic_item_ids=())
+    # warm-up with every K2 launch held against its plain version on
+    # (h)'s own caster views, then the timed precompute
+    with checked_launches({}) as found:
+        maps = r.precompute_shadow_maps(consts[0])
+    report_checked("precompute (36 caster views)", found, {"raster_vis": 36})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _backend.reset_counts()
+    t0 = time.perf_counter()
+    maps = r.precompute_shadow_maps(consts[0])
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    pre = dict(_backend.launches)
+    views = len(caster_views(consts[0]))
+    say(f"[stress] (h) precompute_shadow_maps (ESM, {views} views: 5 spot, 5 x 6 "
+        f"point faces, 1 directional): {pre_ms:.3f} ms (host clock to the "
+        f"sync) on {card}; launches {pre}")
+    if pre["raster_vis"] != views or views != 36:
+        fail(f"(h) precompute launched raster_vis {pre['raster_vis']} times for "
+             f"{views} views")
+    dem = max(int(graph.probe_pair_demand(r.scene, c, W, H)) for c in consts)
+    r.pair_bucket = raster.pair_cap_bucket(dem, r.scene.num_tris_live)
+    say(f"[stress] (h) pair demand over the sweep {dem}, capacity "
+        f"{r.pair_bucket} (raster.pair_cap_bucket)")
+    # one frame with the walk whose K1 and K3 launches are held against
+    # their plain versions on (h)'s own inputs (not counted: the counts
+    # are set to 0 before the timed frames)
+    with checked_launches({}) as found:
+        r.render(consts[0], W, H, shadow_maps=maps, aniso_taps=8, **flags)
+    report_checked("frame 0 with the walk", found,
+                   {"raster_gbuf_msaa": 1, "palette": 4})
+    hist = None
+    for c in consts[:2]:                          # warm-up
+        for taps in (8, 0):
+            hist = r.render(c, W, H, shadow_maps=maps, ssr_history=hist,
+                            aniso_taps=taps, **flags)["ssr_history"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walk = run_frames(r, consts, card, "(h) textured stress frame: engine default "
+                      "(MSAA, SSAO, motion, SSR) + textures, aniso 8 (the pair "
+                      "tap and the adaptive walk)", carry_ssr=True,
+                      shadow_maps=maps, aniso_taps=8, **flags)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    single = run_frames(r, consts, card, "(h) textured stress frame, aniso_taps=0 "
+                        "(the engine's setting: one stochastic pair tap)",
+                        carry_ssr=True, shadow_maps=maps, aniso_taps=0, **flags)
+    n = len(consts)
+    for lab, got in (("aniso 8", walk), ("aniso 0", single)):
+        if (got["raster_gbuf_msaa"] != n or got["palette"] != 4 * n
+                or got["raster_gbuf"] or got["raster_vis"]):
+            fail(f"(h) {lab} frames launched {got}")
+    say(f"[main] (h) launches per frame {({k: v / n for k, v in walk.items()})}; "
+        f"peak device memory {peak:.1f} MiB (16 frames with the walk); pair "
+        f"bucket {r.pair_bucket}")
+    launches = {k: pre[k] + walk[k] + single[k] for k in walk}
+    return launches, (r, consts, maps, flags)
+
+
+def phase_profile_stress(stress) -> None:
+    """(h)'s texture stages (CUDA events, 10 runs each, host syncs
+    included) and a torch.profiler trace of PROFILE_FRAMES stress frames
+    with the walk (traces/stress_trace.json)."""
+    from vqengine_tpu_torch.ops import texture
+    from vqengine_tpu_torch.render import graph
+    r, consts, maps, flags = stress
+    c = consts[1]
+    _, _, attrs, _, _ = graph.geometry_pass(r.scene, c, W, H, msaa=True)
+    n = graph.unit3(attrs["wnrm"])
+    jit = texture.mip_jitter(H, W, device=n.device)
+
+    def mat(taps, textures=r.textures):
+        return graph.material_pass(n, attrs["mrow"], attrs["ids"], uv=attrs["uv"],
+                                   wtan=attrs["wtan"], textures=textures,
+                                   aniso_taps=taps, slots_used=r._slots_used,
+                                   mip_jitter=jit, telemetry={})
+    hist = r.render(consts[0], W, H, shadow_maps=maps, aniso_taps=8,
+                    **flags)["ssr_history"]
+    stages = {
+        "material pass with textures, aniso 8 (lod, pair tap, adaptive walk, "
+        "decode, aux normal)": lambda: mat(8),
+        "material pass with textures, aniso_taps=0 (one stochastic pair tap)":
+            lambda: mat(0),
+        "material pass without textures": lambda: mat(0, None),
+        "whole stress frame, aniso 8": lambda: r.render(
+            c, W, H, shadow_maps=maps, ssr_history=hist, aniso_taps=8, **flags),
+        "whole stress frame, aniso_taps=0": lambda: r.render(
+            c, W, H, shadow_maps=maps, ssr_history=hist, aniso_taps=0, **flags),
+    }
+    for name, fn in stages.items():
+        say(f"[profile] stage {time_ms(fn, 10):8.3f} ms  (h) {name}")
+    trace_frames("stress frames", "stress_trace.json", "(h) textured stress "
+                 "(engine default + textures, aniso 8)",
+                 lambda: r.render(c, W, H, shadow_maps=maps, ssr_history=hist,
+                                  aniso_taps=8, **flags))
+
+
 def phase_default_path(dev, card: str, sponza, renderer) -> dict:
     """(g) the engine's full default frame (render_flags of
     FGraphicsSettings: MSAA 4x with the neighbor edge resolve, SSAO
@@ -1241,7 +1656,7 @@ def run_frames(renderer, consts: list, card: str, label: str,
         if "msaa_edges" in out["saturation"]:
             sat.append((float(out["saturation"]["msaa_edges"]),
                         float(out["saturation"]["msaa_edges_demand"])))
-        for k in ("ssao_refine", "ssr_rays"):
+        for k in ("ssao_refine", "ssr_rays", "tex_aniso", "tex_aniso_demand"):
             if k in out["saturation"]:
                 extra.setdefault(k, []).append(float(out["saturation"][k]))
         for k in ("ao", "motion", "ssr_history"):
@@ -1270,9 +1685,18 @@ def run_frames(renderer, consts: list, card: str, label: str,
             fail(f"{label}: the edge compaction overflowed: {sat}")
     if flags.get("enable_ssao") or flags.get("enable_ssr"):
         say(f"[main] {label}: saturation "
-            + (", ".join(f"{k} {min(v):.4f}..{max(v):.4f}" for k, v in extra.items())
+            + (", ".join(f"{k} {min(v):.4f}..{max(v):.4f}" for k, v in extra.items()
+                         if not k.startswith("tex_"))
                or "ssao_refine and ssr_rays absent (the SSAO preset has no "
                "refinement, the rays march dense)"))
+    if "tex_aniso" in extra:
+        say(f"[main] {label}: tex_aniso per frame "
+            f"{[round(v, 4) for v in extra['tex_aniso']]}; tex_aniso_demand per "
+            f"frame {[round(v, 4) for v in extra['tex_aniso_demand']]}")
+        if max(extra["tex_aniso"]) > 1.0:
+            say(f"[main] {label}: the aniso walk overflowed its capacity "
+                f"(tex_aniso {max(extra['tex_aniso']):.4f}): the ladder's top "
+                f"rung overflowed, the walk truncates")
     say(f"[main] {label}: kernel launches {launches}; plain-version calls on "
         f"CUDA tensors {plain}")
     if max(plain.values()) != 0:
@@ -1315,8 +1739,8 @@ def phase_main_path(dev, card: str, sponza, renderer) -> dict:
         f"built at load) lights every frame below and is the background, "
         f"unless a row says otherwise; shadow casters "
         f"({sponza.has_shadow_casters})")
-    if sponza.wants_textures:
-        fail("Sponza wants textures, which are not ported yet")
+    if sponza.textures is not None:
+        fail("Sponza samples textures: its level names no texture file")
     consts = []
     for i in range(N_FRAMES):
         sweep_camera(cam, i, base_yaw)
@@ -1802,15 +2226,18 @@ def main() -> None:
     timed("MSAA card vs CPU", phase_msaa_card_vs_cpu, dev)
     timed("transparent card vs CPU", phase_transparent_card_vs_cpu, dev)
     timed("SSAO/SSR/motion card vs CPU", phase_post_card_vs_cpu, dev, env_cpu)
+    timed("textures card vs CPU", phase_texture_card_vs_cpu, dev)
     launches = timed("main paths (a)-(e)", phase_main_path, dev, card, sponza,
                      renderer)
     lt = timed("main path (f)", phase_transparent_path, card, st, rt)
     lg = timed("main path (g)", phase_default_path, dev, card, sponza, renderer)
-    launches = {k: launches[k] + lt[k] + lg[k] for k in launches}
+    lh, stress = timed("main path (h)", phase_stress_path, dev, card)
+    launches = {k: launches[k] + lt[k] + lg[k] + lh[k] for k in launches}
     if "--profile" in sys.argv[1:]:
         # timed before the traced frames, as phase_profile times its stages
         phase_profile_transparent(st, rt)
         phase_profile(sponza, renderer)
+        phase_profile_stress(stress)
     check_imports()
     kernels = [
         dict(name="palette", route="cuda",

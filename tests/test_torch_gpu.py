@@ -609,3 +609,82 @@ def test_default_goldens_on_card(cuda, golden):
     from vqengine_tpu_torch.engine.goldens import golden_scores, render_golden
     s = golden_scores(golden, render_golden(golden, cuda))
     assert s["ok"], s
+
+
+@pytest.mark.parametrize("golden", ["textured_quad", "gltf_roundtrip", "sponza"])
+def test_textured_and_sponza_goldens_on_card(cuda, golden):
+    """The goldens textured_quad, gltf_roundtrip and sponza rendered on the
+    card, within the bars of engine/goldens.py (sponza is checked only on
+    the card: at the default environment sizes and 256^2 directional maps
+    it takes about a minute on one CPU core)."""
+    from vqengine_tpu_torch.engine.goldens import golden_scores, render_golden
+    s = golden_scores(golden, render_golden(golden, cuda))
+    assert s["ok"], s
+
+
+def test_texture_roundings_on_card(cuda):
+    """The XLA-rounding helpers of ops/texture.py give the CPU's bits on the
+    card: log_xla and log2_xla (FMAs through f64), cross_xla, the R2
+    jitter; srgb_to_linear_fast (f64 pow) within one f32 ulp."""
+    from vqengine_tpu_torch.ops import colorspace, texture
+    g = torch.Generator().manual_seed(3)
+    x = torch.exp(torch.empty(200_000).uniform_(-16.0, 14.0, generator=g))
+    a, b = torch.randn(50_000, 3, generator=g), torch.randn(50_000, 3, generator=g)
+    for fn, args in ((texture.log_xla, (x,)), (texture.log2_xla, (x,)),
+                     (texture.cross_xla, (a, b))):
+        assert bitwise(fn(*(t.to(cuda) for t in args)).cpu(), fn(*args))
+    assert bitwise(texture.mip_jitter(108, 192, device=cuda).cpu(),
+                   texture.mip_jitter(108, 192))
+    c = torch.rand(200_000, generator=g)
+    d = (colorspace.srgb_to_linear_fast(c.to(cuda)).cpu().view(torch.int32)
+         - colorspace.srgb_to_linear_fast(c).view(torch.int32)).abs()
+    assert int(d.max()) <= 1
+
+
+def test_textured_frames_on_card(cuda):
+    """goldens.atrium_scene at 192x108 with the aniso-8 walk, the alpha
+    peel and the textured glass, without and with MSAA ("shade" resolve),
+    on the card and on the CPU: tri_id equal, ldr within 3e-4, the texture
+    telemetry equal and every tap's level and row equal; the peel and the
+    glass layers launch K1-bounded on the card."""
+    from vqengine_tpu_torch.engine import goldens
+    from vqengine_tpu_torch.ops import texture
+    from vqengine_tpu_torch.render.scene_buffers import split_transparent
+    rows = texture._tap_rows
+    outs = []
+    for d in (cuda, torch.device("cpu")):
+        buffers, tex, cam, lights = goldens.atrium_scene(d, aspect=192 / 108)
+        opaque, transp = split_transparent(buffers)
+        r = VQRendererTorch(d)
+        c = r.build_frame_constants(buffers, cam, lights)
+        scene, scene_t = graph.upload_scene(opaque, d), graph.upload_scene(transp, d)
+        for flags in ({}, {"msaa": True, "msaa_edge_resolve": "shade"}):
+            taps = []
+
+            def rec(pt, tex_id, uv, lodi, pair, taps=taps):
+                out = rows(pt, tex_id, uv, lodi, pair)
+                taps.append((lodi.cpu(), out[0].cpu()))
+                return out
+            texture._tap_rows = rec
+            before = _backend.launches["raster_gbuf_bounded"] + \
+                _backend.launches["raster_gbuf_msaa_bounded"]
+            try:
+                o = graph.render_forward(
+                    scene, c, 192, 108, enable_shadows=False, textures=tex,
+                    slots_used=graph.slots_used_of(buffers.materials),
+                    aniso_taps=8, enable_alpha_mask=True,
+                    scene_transparent=scene_t, **flags)
+            finally:
+                texture._tap_rows = rows
+            k1b = (_backend.launches["raster_gbuf_bounded"]
+                   + _backend.launches["raster_gbuf_msaa_bounded"] - before)
+            outs.append((o, taps, k1b))
+    for (o, taps, k1b), (oc, taps_c, _) in zip(outs[:2], outs[2:]):
+        assert k1b == 3
+        assert torch.equal(o["tri_id"].cpu(), oc["tri_id"])
+        assert float((o["ldr"].cpu() - oc["ldr"]).abs().max()) <= 3e-4
+        assert len(taps) == len(taps_c) > 0
+        for (la, ra), (lb, rb) in zip(taps, taps_c):
+            assert torch.equal(la, lb) and torch.equal(ra, rb)
+        for k in ("tex_aniso", "tex_aniso_demand"):
+            assert float(o["saturation"][k]) == float(oc["saturation"][k]), k

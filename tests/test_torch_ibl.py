@@ -328,12 +328,26 @@ def test_importance_sample_ggx_matches_jax(lanes):
 
 
 def test_brdf_integration_lut_matches_jax(ref_env):
-    """The 32^2 LUT of 512 samples accumulated in order: the reference's
-    lax.scan body is compiled (XLA contracts its multiply-adds), so the
-    sums differ in the last bits; within 1e-5."""
+    """The 32^2 LUT of 512 samples accumulated in order, with the compiled
+    scan body's contractions and libm's cosf/sinf mirrored: bitwise (within
+    1e-5 before it mirrored them)."""
     out = tb.brdf_integration_lut(SIZES["lut_size"], 512, device=CPU)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_env.brdf_lut),
                                rtol=0, atol=1e-5)
+    assert np.array_equal(out.numpy().view(np.uint32),
+                          np.asarray(ref_env.brdf_lut).view(np.uint32))
+
+
+def test_brdf_lut_grazing_column_bitwise():
+    """The engine's 256^2 LUT of 512 samples: its 8 most grazing NdotV
+    columns (from 0.002), where the eager loop's roundings grew to 9.8e-4
+    (ROADMAP queue 3, repaired), bitwise against the reference's
+    brdf_integration_lut."""
+    g = (torch.arange(256, dtype=torch.float32) + 0.5) / 256
+    r, nv = torch.meshgrid(g, g[:8], indexing="ij")
+    out = tb.integrate_brdf(nv, r, 512).numpy()
+    ref = np.asarray(jb.brdf_integration_lut(256, 512))[:, :8]
+    assert np.array_equal(out.view(np.uint32), ref.view(np.uint32))
 
 
 # ---------------------------------------------------------------------------

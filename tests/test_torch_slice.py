@@ -225,6 +225,14 @@ assert tuple(out["ldr"].shape) == (64, 64, 3)
 assert "msaa_edges" in out["saturation"]
 assert bool(torch.isfinite(out["ldr"]).all())
 assert float((out["tri_id"] >= 0).float().mean()) > 0.05
+from vqengine_tpu_torch.engine.goldens import atrium_scene
+buffers, tex, cam, lights = atrium_scene(torch.device("cpu"), aspect=1.0)
+r.load_scene(buffers, textures=tex)
+assert r._any_alpha_mask and r.scene_t is not None
+consts = r.build_frame_constants(buffers, cam, lights)
+out = r.render(consts, 64, 64, enable_shadows=False, msaa=True, aniso_taps=8)
+assert "tex_aniso" in out["saturation"]
+assert bool(torch.isfinite(out["ldr"]).all())
 bad = [m for m in sys.modules
        if m in ("jax", "vqengine_tpu") or m.startswith(("jax.", "vqengine_tpu."))]
 assert not bad, f"the port imported {bad}"
@@ -235,8 +243,10 @@ print("ok")
 def test_port_renders_without_jax():
     """A shadowed Sponza frame (all three caster kinds, maps rendered in
     the frame) with MSAA, the edge resolve and a translucent material (the
-    transparent pass), in a fresh process: neither jax nor any module of
-    the JAX package gets imported."""
+    transparent pass), then a textured frame (goldens.atrium_scene: pair
+    rows, the aniso-8 walk, the alpha peel, a textured glass layer, MSAA),
+    in a fresh process: neither jax nor any module of the JAX package gets
+    imported."""
     res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
@@ -249,14 +259,18 @@ def entry_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(env=object()), dict(textures=object()), dict(enable_ssao=True),
+    dict(env=object()), dict(textures="checkerboard"), dict(enable_ssao=True),
     dict(enable_ssr=True), dict(enable_motion_vectors=True),
     dict(enable_alpha_mask=True), dict(scene_transparent="scene"),
     dict(cas_sharpness=0.5),
     dict(out_width=2 * WIDTH, out_height=2 * HEIGHT)])
 def test_unported_features_raise(entry_cpu, kw):
-    """Features of later slices raise. Six cases, ported since, now hold
-    the reference's behaviour instead: enable_alpha_mask without textures
+    """Features of later slices raise. Seven cases, ported since, now hold
+    the reference's behaviour instead: textures (a 16^2 checkerboard, the
+    entry scene's materials pointing their diffuse slot at it) change the
+    frame, and with aniso_taps 8 the adaptive walk reports tex_aniso
+    (tests/test_torch_texture.py holds them against the reference);
+    enable_alpha_mask without textures
     renders the frame without it (the reference's alpha_test needs
     textures); the entry scene as its own transparent part renders the
     opaque frame unchanged (every transparent fragment lies exactly on
@@ -287,6 +301,25 @@ def test_unported_features_raise(entry_cpu, kw):
         assert torch.equal(out["tri_id"], base["tri_id"])
         changed = not torch.equal(out["ldr"], base["ldr"])
         assert changed == (key != "motion"), key
+        return
+    if "textures" in kw:
+        from vqengine_tpu_torch.ops import texture
+        from vqengine_tpu_torch.scene.texture_manager import (checkerboard,
+                                                              generate_mips)
+        mats = scene.materials.clone()
+        mats[:, 20] = 0.0            # the diffuse slot samples texture 0
+        scene = dataclasses.replace(scene, materials=mats)
+        tex = texture.pack_texture_quads(
+            [m[None] for m in generate_mips(checkerboard(16, 4))], CPU)
+        base = tg.render_forward(scene, consts, WIDTH, HEIGHT)
+        out = tg.render_forward(scene, consts, WIDTH, HEIGHT, textures=tex,
+                                aniso_taps=8)
+        assert "tex_aniso" in out["saturation"]
+        assert "tex_aniso" not in base["saturation"]
+        assert 0.0 <= float(out["saturation"]["tex_aniso"]) <= 1.0
+        assert torch.equal(out["tri_id"], base["tri_id"])
+        assert bool(torch.isfinite(out["ldr"]).all())
+        assert not torch.equal(out["ldr"], base["ldr"])
         return
     if "env" in kw:
         env = tg.build_environment(procedural_sky_equirect(32, 16), CPU,

@@ -430,6 +430,42 @@ def test_motion_vectors_matches_jax(motion_case, ids):
                                    rtol=0, atol=MOTION_TOL)
 
 
+@pytest.mark.parametrize("ids", [MOVED, None, tuple(range(17))],
+                         ids=["moved", "palette", "17_items"])
+def test_motion_vectors_with_inverse_bitwise(motion_case, ids):
+    """graph.inv4 mirrors the reference's jnp.linalg.inv (LAPACK's sgetrf
+    and two strsm): the items' inverses bitwise, and with them the motion
+    vectors on the per-item and palette paths."""
+    m = motion_case
+    world = m["tc"].world
+    assert_bitwise(tg.inv4(world), jnp.linalg.inv(m["jc"].world), "inverse")
+    args = (m["wpos"], m["tri_id"], m["mask"])
+    out = tg.motion_vectors(m["ts"], m["tc"], *args, item_id=m["item"],
+                            dynamic_item_ids=ids)
+    ref = jg.motion_vectors(m["js"], m["jc"], *(jnp.asarray(a.numpy()) for a in args),
+                            item_id=jnp.asarray(m["item"].numpy()),
+                            dynamic_item_ids=ids)
+    assert_bitwise(out, ref, "motion")
+
+
+def test_inv4_matches_jax():
+    """graph.inv4 bitwise against jnp.linalg.inv on 400 random rigid
+    transforms (rotation, scale, translation, as world matrices) and 400
+    random matrices, batched and one at a time."""
+    rng = np.random.default_rng(12)
+    rigid = []
+    for _ in range(400):
+        q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        m = np.eye(4)
+        m[:3, :3] = q * rng.uniform(0.5, 30.0)
+        m[:3, 3] = rng.uniform(-900.0, 900.0, 3)
+        rigid.append(m.T)
+    a = np.concatenate([np.asarray(rigid, np.float32),
+                        rng.standard_normal((400, 4, 4)).astype(np.float32)])
+    assert_bitwise(tg.inv4(torch.from_numpy(a)), jnp.linalg.inv(jnp.asarray(a)))
+    assert_bitwise(tg.inv4(torch.from_numpy(a[7])), jnp.linalg.inv(jnp.asarray(a[7])))
+
+
 def test_static_camera_motion_is_zero(motion_case):
     """Nothing moved (prev_view_proj = view_proj, prev_world = world): the
     static path gives exactly 0 on both sides; the palette path within

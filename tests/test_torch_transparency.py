@@ -23,6 +23,7 @@ bitwise or within 1e-6 (wpos: the unprojection), the layers' colors within
 tests/test_multichip.py:73; the two libraries' sqrt, exp and division
 differ in the last ulp)."""
 import contextlib
+import dataclasses
 import types
 
 import jax
@@ -436,16 +437,34 @@ def test_blend_over_opaque():
     assert px[0] > 0.05, "floor red fully lost: blend looks opaque"
 
 
-@pytest.mark.parametrize("kw", [dict(env=object()), dict(textures=object()),
+@pytest.mark.parametrize("kw", [dict(env=object()), dict(textures="checkerboard"),
                                 dict(full_height=2 * H), dict(y_offset=H)])
 def test_transparent_pass_unported_raise(kw):
-    """Textures and multichip bands of the reference's transparent_pass
-    are later slices: they raise. The environment term is ported (IBL):
-    with a small procedural sky's maps the layers are lit by it, so the
-    pass changes the glass's pixels and no others
-    (tests/test_torch_ibl.py holds it against the reference)."""
+    """Multichip bands of the reference's transparent_pass are a later
+    slice: they raise. The environment term is ported (IBL): with a small
+    procedural sky's maps the layers are lit by it; so are textures (a
+    16^2 checkerboard in the glass's diffuse slot): each changes the
+    glass's pixels and no others (tests/test_torch_ibl.py and
+    tests/test_torch_texture.py hold them against the reference)."""
     _, pt, pc = port_scene("glass_over_floor")
     hdr = torch.zeros((H, W, 3))
+    if "textures" in kw:
+        from vqengine_tpu_torch.ops import texture
+        from vqengine_tpu_torch.scene.texture_manager import (checkerboard,
+                                                              generate_mips)
+        mats = pt.materials.clone()
+        mats[:, 20] = 0.0            # the diffuse slot samples texture 0
+        pt = dataclasses.replace(pt, materials=mats)
+        tex = texture.pack_texture_quads(
+            [m[None] for m in generate_mips(checkerboard(16, 4))], CPU)
+        depth = torch.ones((H, W))
+        lit = tg.transparent_pass(pt, pc, hdr, depth, W, H, textures=tex)
+        bare = tg.transparent_pass(pt, pc, hdr, depth, W, H)
+        glass = tg.transparent_layers(pt, pc, depth, W, H)[0]["mask"]
+        assert bool(glass.any()) and bool(torch.isfinite(lit).all())
+        assert not torch.equal(lit[glass], bare[glass])
+        assert torch.equal(lit[~glass], bare[~glass])
+        return
     if "env" in kw:
         env = tg.build_environment(procedural_sky_equirect(32, 16), CPU,
                                    diffuse_size=4, specular_base=8,

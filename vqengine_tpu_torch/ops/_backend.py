@@ -15,6 +15,8 @@ the package and keyed by a hash of the sources and flags.
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
+import functools
 import hashlib
 import os
 import shutil
@@ -31,6 +33,16 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+
+@functools.cache
+def libm_f32(name: str):
+    """libm's f32 function `name` (tanf, cosf, sinf) through ctypes: XLA's
+    CPU backend calls these for the reference's f32 tan, cos and sin, which
+    torch rounds otherwise; the port calls them on the host."""
+    fn = getattr(ctypes.CDLL(ctypes.util.find_library("m")), name)
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return fn
 
 KERNELS = ("palette", "raster_gbuf", "raster_vis", "raster_gbuf_msaa",
            "raster_vis_msaa4", "raster_gbuf_bounded",

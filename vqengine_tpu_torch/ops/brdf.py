@@ -10,7 +10,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from . import _backend
+from .raster import _fma
+from .shadow import _sqrt, norm3
 
 PI = math.pi
 
@@ -179,38 +184,79 @@ def importance_sample_ggx(xi: torch.Tensor, n: torch.Tensor,
 LUT_SAMPLE_CHUNK = 32
 
 
+def _sample_angles(xi0: torch.Tensor):
+    """cos and sin of the samples' phi = xi0 * f32(2 pi), as the reference's
+    compiled scan takes them: libm's cosf and sinf (XLA lowers its f32
+    cosine and sine to them), on the host -> two [S] f32 tensors on xi0's
+    device."""
+    c2pi = np.float32(6.28318548)
+    phi = (xi0.cpu().numpy().astype(np.float32) * c2pi).astype(np.float32)
+    cos_f, sin_f = _backend.libm_f32("cosf"), _backend.libm_f32("sinf")
+    return (torch.tensor([cos_f(float(x)) for x in phi], dtype=torch.float32,
+                         device=xi0.device),
+            torch.tensor([sin_f(float(x)) for x in phi], dtype=torch.float32,
+                         device=xi0.device))
+
+
 def integrate_brdf(ndotv: torch.Tensor, roughness: torch.Tensor,
                    num_samples: int = 512) -> torch.Tensor:
     """Split-sum BRDF integration -> (F0 scale, F0 bias) (BRDF.hlsl:239-283).
-    ndotv/roughness [...] -> [..., 2]; the samples accumulate one after
-    another, in the order of the reference's lax.scan, their terms computed
-    LUT_SAMPLE_CHUNK samples at a time."""
+    ndotv/roughness [...] -> [..., 2]. Rounded as XLA compiles the
+    reference's lax.scan body on the CPU: every multiply whose one use is an
+    add or a subtract fused into it, the three-term dots and norms as FMA
+    chains, true divisions and square roots, libm's cosf and sinf
+    (_sample_angles); the normal is +z, so the tangent frame is (0, -1, 0),
+    (1, 0, 0) and the half vector before its normalization is (h1, -h0,
+    cos theta) exactly. The samples accumulate one after another, in the
+    scan's order, their terms computed LUT_SAMPLE_CHUNK at a time."""
+    dev = ndotv.device
     ndotv = torch.clamp(ndotv, min=1e-4)
-    v = torch.stack([torch.sqrt(1.0 - ndotv * ndotv), torch.zeros_like(ndotv),
-                     ndotv], dim=-1)
-    n = torch.tensor([0.0, 0.0, 1.0], device=v.device).expand(v.shape)
-    xi = hammersley(torch.arange(num_samples, device=v.device), num_samples)
+    vx = _sqrt(1.0 - ndotv * ndotv)
+    vz = ndotv
+    r = roughness
+    a = r * r
+    aa1 = _fma(a, a, -1.0)                          # a * a - 1
+    k = (r * r) * 0.5
+    omk = 1.0 - k
+
+    def g1(nx):                                     # Smith-Schlick, IBL k
+        return nx / (_fma(nx, omk, k) + 1e-4)
+    g_v = g1(torch.clamp(vz, min=0.0))
+    xi = hammersley(torch.arange(num_samples, device=dev), num_samples)
+    cphi, sphi = _sample_angles(xi[:, 0])
     scale = torch.zeros_like(ndotv)
     bias = torch.zeros_like(ndotv)
     zero = torch.zeros_like(ndotv)
     for s0 in range(0, num_samples, LUT_SAMPLE_CHUNK):
-        x = xi[s0:s0 + LUT_SAMPLE_CHUNK]
-        h = importance_sample_ggx(x.reshape((x.shape[0],) + (1,) * ndotv.ndim + (2,)),
-                                  n, roughness)
-        l = normalize(reflect(-v, h))
-        ndotl = torch.clamp(l[..., 2], min=0.0)
-        ndoth = torch.clamp(h[..., 2], min=0.0)
-        vdoth = torch.clamp(_dot(v, h), min=0.0)
-        g = geometry_smith_ibl(n, v, l, roughness)
+        sl = slice(s0, s0 + LUT_SAMPLE_CHUNK)
+        shape = (xi[sl].shape[0],) + (1,) * ndotv.ndim
+        xi1 = xi[sl, 1].reshape(shape)
+        cos_t = _sqrt((1.0 - xi1) / _fma(aa1, xi1, 1.0))
+        sin_t = _sqrt(torch.clamp(_fma(-cos_t, cos_t, 1.0), min=0.0))
+        hx = sphi[sl].reshape(shape) * sin_t
+        hy = -(cphi[sl].reshape(shape) * sin_t)
+        hz = cos_t
+        hn = torch.clamp(norm3(torch.stack([hx, hy, hz], dim=-1)), min=1e-12)
+        hx, hy, hz = hx / hn, hy / hn, hz / hn
+        # reflect(-v, h) = i - 2 dot(h, i) h, i = -v (its y is 0)
+        d2 = _fma(hz, -vz, hx * -vx) * 2.0
+        rx, ry, rz = _fma(-d2, hx, -vx), _fma(-d2, hy, 0.0), _fma(-d2, hz, -vz)
+        rn = torch.clamp(norm3(torch.stack([rx, ry, rz], dim=-1)), min=1e-12)
+        lz = rz / rn
+        ndotl = torch.clamp(lz, min=0.0)
+        ndoth = torch.clamp(hz, min=0.0)
+        vdoth = torch.clamp(_fma(vz, hz, vx * hx), min=0.0)
+        g = g_v * g1(ndotl)
         g_vis = torch.clamp(g * vdoth / torch.clamp(ndoth * ndotv, min=1e-6),
                             min=1e-4)
-        fc = _pow5(1.0 - vdoth)
+        x = 1.0 - vdoth
+        x4 = (x * x) * (x * x)
         lit = ndotl > 0
-        d_scale = torch.where(lit, (1.0 - fc) * g_vis, zero)
-        d_bias = torch.where(lit, fc * g_vis, zero)
-        for k in range(x.shape[0]):
-            scale = scale + d_scale[k]
-            bias = bias + d_bias[k]
+        d_scale = torch.where(lit, _fma(-x4, x, 1.0) * g_vis, zero)
+        d_bias = torch.where(lit, (x4 * x) * g_vis, zero)
+        for j in range(d_scale.shape[0]):
+            scale = scale + d_scale[j]
+            bias = bias + d_bias[j]
     return torch.stack([scale, bias], dim=-1) / num_samples
 
 

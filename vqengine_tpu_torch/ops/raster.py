@@ -61,11 +61,14 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def _fma(a, b, c) -> torch.Tensor:
     """a*b + c rounded once, as a fused multiply-add: the f32 product is
     exact in f64, so only the f64 sum and the final f32 rounding remain
-    (equal to a true FMA except for rare double-rounding ties)."""
-    return (a.double() * b.double() + c.double()).float()
+    (equal to a true FMA except for rare double-rounding ties). Each
+    argument is an f32 tensor or a number exact in f32."""
+    def d(v):
+        return v.double() if isinstance(v, torch.Tensor) else v
+    return (d(a) * d(b) + d(c)).float()
 
 
 def scalar_on(x, device) -> torch.Tensor:

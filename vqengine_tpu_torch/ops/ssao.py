@@ -21,14 +21,12 @@ on a card PyTorch turns x / c into x * (1 / c), which rounds otherwise.
 """
 from __future__ import annotations
 
-import ctypes
-import ctypes.util
 import functools
 
 import numpy as np
 import torch
 
-from . import ffx, sparse
+from . import _backend, ffx, sparse
 from .raster import _fma
 from .raster import div_true as _div
 from .raster import scalar_on as _scalar
@@ -56,15 +54,8 @@ MIP_DIST_THRESHOLDS = tuple(float(np.array(b, np.uint32).view(np.float32))
 
 
 @functools.cache
-def _libm_tanf():
-    fn = ctypes.CDLL(ctypes.util.find_library("m")).tanf
-    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
-    return fn
-
-
-@functools.cache
 def _tanf(x: float) -> float:
-    return float(np.float32(_libm_tanf()(x)))
+    return float(np.float32(_backend.libm_f32("tanf")(x)))
 
 
 def tan_half(fov_y) -> float:

@@ -1,10 +1,11 @@
 """The forward render graph — counterpart of ``vqengine_tpu/render/graph.py``
 for the main path: cull + LOD, raster front end, G-buffer raster (with or
-without MSAA), material fetch, SSAO, motion vectors, shadow maps and shadow
-tests, direct-light and environment (IBL) shading, the MSAA edge resolve,
-the skydome or clear color background, screen-space reflections with their
-temporal history, the depth-peeled transparent pass (and the alpha-mask
-peel) and tonemap; the environment maps' load-time build.
+without MSAA), material fetch and texture sampling, SSAO, motion vectors,
+shadow maps and shadow tests, direct-light and environment (IBL) shading,
+the MSAA edge resolve, the skydome or clear color background,
+screen-space reflections with their temporal history, the depth-peeled
+transparent pass (and the alpha-mask peel) and tonemap; the environment
+maps' load-time build.
 
 PyTorch runs eagerly, so a render graph here is a plain function of
 (DeviceScene, FrameConstants) tensors on one device; nothing is traced or
@@ -24,11 +25,14 @@ from ..ops import culling, ffx, ibl, palette, raster, shading, shadow, sparse
 from ..ops import msaa as msaa_ops
 from ..ops import ssao as ssao_ops
 from ..ops import ssr as ssr_ops
+from ..ops import texture as tex_ops
 from ..ops import postprocess as pp
 
 # capacity of the MSAA edge compaction: frame pixels / MSAA_EDGE_CAP_FRAC,
 # rounded up to a multiple of 4096 (at least 4096)
 MSAA_EDGE_CAP_FRAC = 32
+# capacity of the anisotropic ellipse walk: frame pixels / TEX_ANISO_WALK_FRAC
+TEX_ANISO_WALK_FRAC = 32
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -355,6 +359,14 @@ def geometry_setup_gbuf(scene: DeviceScene, consts: FrameConstants,
     return setup, extra
 
 
+def probe_pair_demand(scene: DeviceScene, consts: FrameConstants,
+                      width: int, height: int) -> torch.Tensor:
+    """The binning pair demand of one frame (the geometry front end only),
+    which feeds raster.pair_cap_bucket."""
+    setup, _ = geometry_setup_gbuf(scene, consts, width, height)
+    return raster.pair_demand_of(setup)
+
+
 def geometry_pass(scene: DeviceScene, consts: FrameConstants,
                   width: int, height: int, msaa: bool = False,
                   return_binned: bool = False,
@@ -389,12 +401,38 @@ def geometry_pass(scene: DeviceScene, consts: FrameConstants,
     return depth, tri_id, attrs, mask, coverage
 
 
-def material_pass(wnrm: torch.Tensor, mrow: torch.Tensor,
-                  ids: torch.Tensor) -> dict:
-    """The untextured PSMain material block (ForwardLighting.hlsl:226-277):
-    material row constants only; alpha is the row's (the reference's value
-    for a material without a diffuse or alpha-mask map)."""
-    return {
+def slots_used_of(materials) -> tuple:
+    """Static texture-slot usage of a packed [M, 32] materials array: 9
+    per-slot flags and the combined-aux flag (col 29). The texture-config
+    PSO permutation analog: unused slots never sample."""
+    m = np.asarray(materials)
+    flags = [bool((m[:, 20 + k] >= 0).any()) for k in range(9)]
+    flags.append(bool((m[:, 29] >= 0).any()))
+    return tuple(flags)
+
+
+def material_pass(wnrm: torch.Tensor, mrow: torch.Tensor, ids: torch.Tensor,
+                  uv: torch.Tensor | None = None,
+                  wtan: torch.Tensor | None = None,
+                  textures: tex_ops.PackedTextures | list | None = None,
+                  aniso_taps: int = 0, slots_used: tuple | None = None,
+                  lod: torch.Tensor | None = None,
+                  mip_jitter: torch.Tensor | None = None,
+                  telemetry: dict | None = None) -> dict:
+    """The PSMain material block (ForwardLighting.hlsl:226-277): the
+    material row's constants, and with textures the sampled slots, each
+    gated by its Has*Map test: albedo and emissive decode sRGB, the
+    combined aux map (normal xy, roughness, metalness) and the slots 1-8
+    perturb the normal and scale the row's factors; the alpha is the
+    diffuse map's (or the slot-3 alpha mask's) where there is one, else the
+    row's. With pair rows (TextureManager.combine_pair_quads) the diffuse
+    and aux maps come from one tap, anisotropic with aniso_taps > 1 (the
+    adaptive ellipse walk, capacity frame / TEX_ANISO_WALK_FRAC, its
+    saturation into telemetry). slots_used: the scene's slot flags
+    (slots_used_of); None samples every slot. Shape-blind: [H, W] images
+    or the compacted [R2, 512] lanes of the "shade" resolve (uv gradients
+    then difference neighbouring lanes, as in the reference)."""
+    out = {
         "albedo": mrow[..., 0:3],
         "alpha": mrow[..., 3],
         "emissive": mrow[..., 4:7] * mrow[..., 7:8],
@@ -405,6 +443,97 @@ def material_pass(wnrm: torch.Tensor, mrow: torch.Tensor,
         "object_id": ids[..., 0].to(torch.int32),
         "item_id": ids[..., 1].to(torch.int32),
     }
+    if textures is None or uv is None:
+        return out
+
+    uv_t = uv * mrow[..., 8:10] + mrow[..., 10:12]          # uvScaleOffset
+    max_lod = tex_ops.tex_num_levels(textures) - 1
+    if lod is None:
+        lod = tex_ops.uv_mip_level(uv_t, tex_ops.tex_base_size(textures), max_lod)
+
+    def slot_id(bit):
+        return mrow[..., 20 + bit].to(torch.int32)
+
+    def has(bit):
+        return slot_id(bit) >= 0
+
+    def used(bit):
+        return slots_used is None or (bit < len(slots_used) and bool(slots_used[bit]))
+
+    def sample(bit, lod_bias=None):
+        lv = lod if lod_bias is None else torch.clamp(lod + lod_bias, 0.0, float(max_lod))
+        return tex_ops.sample_texture_array(textures, slot_id(bit), uv_t, lv,
+                                            jitter=mip_jitter)
+
+    # the pair rows: the diffuse and combined-aux quads in one tap
+    pair_ok = (isinstance(textures, tex_ops.PackedTextures)
+               and textures.pair_flat is not None and (used(0) or used(9)))
+    diffuse_s = aux = None
+    if pair_ok:
+        pid = mrow[..., 30].to(torch.int32)
+        if aniso_taps > 1:
+            diffuse_s, aux = tex_ops.sample_texture_pair_aniso(
+                textures, pid, slot_id(0), uv_t, num_taps=aniso_taps,
+                jitter=mip_jitter, adaptive_frac=TEX_ANISO_WALK_FRAC,
+                telemetry=telemetry)
+        else:
+            diffuse_s, aux = tex_ops.sample_texture_pair(textures, pid, uv_t, lod,
+                                                         jitter=mip_jitter)
+    if used(0):
+        if diffuse_s is None:
+            if aniso_taps > 1:
+                diffuse_s = tex_ops.sample_texture_array_aniso(
+                    textures, slot_id(0), uv_t, num_taps=aniso_taps,
+                    jitter=mip_jitter, adaptive_frac=TEX_ANISO_WALK_FRAC,
+                    telemetry=telemetry)
+            else:
+                diffuse_s = sample(0)
+        h0 = has(0)
+        out["albedo"] = torch.where(
+            h0[..., None], cs.srgb_to_linear_fast(diffuse_s[..., :3]) * mrow[..., 0:3],
+            mrow[..., 0:3])
+        out["alpha"] = torch.where(h0, diffuse_s[..., 3], mrow[..., 3])
+    # a dedicated alpha-mask map (slot 3) overrides the diffuse alpha
+    if used(3):
+        out["alpha"] = torch.where(has(3), sample(3)[..., 0], out["alpha"])
+    if wtan is not None and used(1):
+        n_mapped = tex_ops.unpack_normal_map(
+            sample(1, lod_bias=mrow[..., 16])[..., :3], wnrm, wtan)
+        out["normal"] = torch.where(has(1)[..., None], n_mapped, wnrm)
+    # the combined auxiliary map (normal.xy | roughness | metalness)
+    if used(9):
+        has_c = mrow[..., 29].to(torch.int32) >= 0
+        if aux is None:
+            l_aux = torch.clamp(lod + mrow[..., 16], 0.0, float(max_lod))
+            aux = tex_ops.sample_texture_array(textures, mrow[..., 29].to(torch.int32),
+                                               uv_t, l_aux, jitter=mip_jitter)
+        if wtan is not None:
+            n_c = tex_ops.unpack_normal_map_xy(aux[..., 0:2], wnrm, wtan)
+            out["normal"] = torch.where(has_c[..., None], n_c, out["normal"])
+        out["roughness"] = torch.where(has_c, mrow[..., 12] * aux[..., 2],
+                                       out["roughness"])
+        out["metalness"] = torch.where(has_c, mrow[..., 13] * aux[..., 3],
+                                       out["metalness"])
+    if used(2):
+        out["local_ao"] = torch.where(has(2), sample(2)[..., 0], out["local_ao"])
+    if used(4):
+        out["roughness"] = torch.where(has(4), out["roughness"] * sample(4)[..., 0],
+                                       out["roughness"])
+    if used(5):
+        out["metalness"] = torch.where(has(5), out["metalness"] * sample(5)[..., 0],
+                                       out["metalness"])
+    if used(7):
+        out["emissive"] = torch.where(
+            has(7)[..., None],
+            cs.srgb_to_linear_fast(sample(7)[..., :3]) * mrow[..., 4:7] * mrow[..., 7:8],
+            out["emissive"])
+    if used(8):
+        orm = sample(8)
+        out["roughness"] = torch.where(has(8), out["roughness"] * orm[..., 1],
+                                       out["roughness"])
+        out["metalness"] = torch.where(has(8), out["metalness"] * orm[..., 2],
+                                       out["metalness"])
+    return out
 
 
 def pool2(x: torch.Tensor, reduce: str = "mean") -> torch.Tensor:
@@ -433,6 +562,51 @@ def _mat4_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for j in range(1, 4):
         acc = raster._fma(a[..., :, j, None], b[..., None, j, :], acc)
     return acc
+
+
+def inv4(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of [..., 4, 4] f32 matrices, bit for bit as the reference's
+    jnp.linalg.inv on the CPU: LAPACK's sgetrf and two strsm (the
+    scipy-linked kernels XLA calls). The factorization is left-looking with
+    partial pivoting: a column's upper entries subtract a dot product
+    summed as an FMA chain from its last term back, its lower entries one
+    summed as an FMA chain from its first term, and the multipliers scale
+    by the pivot's reciprocal; the solves of P I are right-looking with
+    fused updates, the upper one scaling by the diagonal's reciprocal (0 of
+    64,800 entries differ on 2,000 random rigid and 2,050 random matrices;
+    torch.linalg.inv differs on 61% of random matrices' entries)."""
+    a = m.clone()
+    perm = torch.arange(4, device=m.device).expand(m.shape[:-1])
+    one = raster.scalar_on(1.0, m.device)
+    for j in range(4):
+        for i in range(1, j):
+            s = a[..., i, i - 1] * a[..., i - 1, j]
+            for k in reversed(range(i - 1)):
+                s = raster._fma(a[..., i, k], a[..., k, j], s)
+            a[..., i, j] = a[..., i, j] - s
+        if j:
+            for i in range(j, 4):
+                s = a[..., i, 0] * a[..., 0, j]
+                for k in range(1, j):
+                    s = raster._fma(a[..., i, k], a[..., k, j], s)
+                a[..., i, j] = a[..., i, j] - s
+        # swap row j with the pivot's (the first largest |a| at or below j)
+        p = j + torch.argmax(a[..., j:, j].abs(), dim=-1, keepdim=True)
+        rows = torch.arange(4, device=m.device).expand(perm.shape).clone()
+        rows[..., j:j + 1] = p
+        rows.scatter_(-1, p, j)
+        perm = torch.gather(perm, -1, rows)
+        a = torch.gather(a, -2, rows[..., None].expand(a.shape)).clone()
+        a[..., j + 1:, j] = a[..., j + 1:, j] * raster.div_true(one, a[..., j, j])[..., None]
+    c = torch.nn.functional.one_hot(perm, 4).to(m.dtype)   # P I
+    for i in range(4):
+        for k in range(i + 1, 4):
+            c[..., k, :] = raster._fma(-c[..., i, :], a[..., k, i, None], c[..., k, :])
+    for i in reversed(range(4)):
+        c[..., i, :] = c[..., i, :] * raster.div_true(one, a[..., i, i])[..., None]
+        for k in range(i):
+            c[..., k, :] = raster._fma(-c[..., i, :], a[..., k, i, None], c[..., k, :])
+    return c
 
 
 def _xyw_rows(m: torch.Tensor) -> torch.Tensor:
@@ -472,13 +646,12 @@ def motion_vectors(scene: DeviceScene, consts: FrameConstants,
     if dynamic_item_ids is not None:
         prev_clip = _clip_xyw(_xyw_rows(consts.prev_view_proj), wpos)
         for i in dynamic_item_ids:
-            delta_i = _mat4_fma(consts.prev_world[i],
-                                torch.linalg.inv_ex(consts.world[i])[0])
+            delta_i = _mat4_fma(consts.prev_world[i], inv4(consts.world[i]))
             rows_i = _xyw_rows(_mat4_fma(consts.prev_view_proj, delta_i))
             prev_clip = torch.where((item_id == i)[..., None],
                                     _clip_xyw(rows_i, wpos), prev_clip)
     else:
-        delta = _mat4_fma(consts.prev_world, torch.linalg.inv_ex(consts.world)[0])
+        delta = _mat4_fma(consts.prev_world, inv4(consts.world))
         rows = _xyw_rows(raster.world_view_proj(consts.prev_view_proj, delta))
         dm = palette.palette_lookup(item_id, rows.reshape(-1, 12).contiguous()) \
             .reshape(item_id.shape + (3, 4))
@@ -693,13 +866,19 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
                          width: int, height: int, enable_shadows: bool,
                          telemetry: dict | None = None,
                          env: EnvironmentMaps | None = None,
-                         ao_map: torch.Tensor | None = None):
+                         ao_map: torch.Tensor | None = None,
+                         textures=None, aniso_taps: int = 0,
+                         slots_used: tuple | None = None,
+                         mip_jit: torch.Tensor | None = None):
     """The "shade" MSAA edge resolve: the secondary surface of each edge
     pixel (msaa.resolve_secondary) interpolated from its record at the
     pixel center (raster.interp_record_attrs), unprojected from its depth,
     and shaded by the same material, environment and direct-light path as
     the primary on the compacted list; shadow visibility is the pixel's
-    own, and so is its SSAO term (ao_map [H, W], when given). -> (w_sec
+    own, and so is its SSAO term (ao_map [H, W], when given). With
+    textures its material_pass runs on the compacted [cap / 512, 512]
+    lanes, as in the reference: the uv gradients there difference
+    neighbouring lanes, and the mip jitter is the edge pixel's. -> (w_sec
     [H, W], sec_rgb [H, W, 3] pre-weighted)."""
     cap = msaa_edge_cap(width, height)
     object_id = attrs["ids"][..., 0].to(torch.int32)
@@ -712,10 +891,19 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
     wpos = _unproject(px / width * 2.0 - 1.0, 1.0 - py / height * 2.0,
                       a["depth"], consts.inv_view_proj)
 
-    mrow = palette.palette_lookup(a["mat_id"], scene.materials)
+    def r2(v):                       # [cap(, k)] -> [cap / 512, 512(, k)]
+        return v.reshape((cap // 512, 512) + tuple(v.shape[1:]))
+
+    mrow = palette.palette_lookup(r2(a["mat_id"]), scene.materials)
     ids = torch.stack([a["object_id"].to(torch.float32),
                        a["item_id"].to(torch.float32)], dim=-1)
-    mat = material_pass(unit3(a["wnrm"]), mrow, ids)
+    mj = None if mip_jit is None else r2(sparse.gather_pixels(mip_jit, idx))
+    # no telemetry: the walk's compaction runs on the capped edge list
+    mat = material_pass(r2(unit3(a["wnrm"])), mrow, r2(ids), uv=r2(a["uv"]),
+                        wtan=r2(a["wtan"]), textures=textures,
+                        aniso_taps=aniso_taps, slots_used=slots_used,
+                        mip_jitter=mj)
+    mat = {k: v.reshape((cap,) + tuple(v.shape[2:])) for k, v in mat.items()}
 
     def gs(v):                       # [C, H, W] -> [C, cap]
         return torch.stack([v[c].reshape(-1)[idx] for c in range(v.shape[0])])
@@ -815,14 +1003,19 @@ def sky_background(consts: FrameConstants, env: EnvironmentMaps,
 
 def shade_transparent_layer(scene_t: DeviceScene, consts: FrameConstants,
                             depth, tri_id, gbuf, width: int, height: int,
-                            env: EnvironmentMaps | None = None) -> dict:
+                            env: EnvironmentMaps | None = None,
+                            textures=None,
+                            slots_used: tuple | None = None) -> dict:
     """One peeled layer's G-buffer -> dict(depth, tri_id, mask, color
-    [H, W, 3], alpha in [0, 1]): the material row's constants, shaded by
-    the environment and the direct lights without casters or screen-space
-    effects."""
+    [H, W, 3], alpha in [0, 1]): the material (with textures sampled as the
+    reference samples a layer: trilinear, no mip jitter, no anisotropy),
+    shaded by the environment and the direct lights without casters or
+    screen-space effects."""
     attrs, lmask = _attrs_from_gbuf(scene_t, consts, depth, tri_id, gbuf,
                                     width, height)
-    mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"])
+    mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"],
+                        uv=attrs["uv"], wtan=attrs["wtan"], textures=textures,
+                        slots_used=slots_used)
     color = shading.shade_forward(
         world_pos=attrs["wpos"], normal=mat["normal"], albedo=mat["albedo"],
         roughness=mat["roughness"], metalness=mat["metalness"],
@@ -839,7 +1032,8 @@ def shade_transparent_layer(scene_t: DeviceScene, consts: FrameConstants,
 def transparent_layers(scene_t: DeviceScene, consts: FrameConstants,
                        opaque_depth: torch.Tensor, width: int, height: int,
                        num_layers: int = 2,
-                       env: EnvironmentMaps | None = None) -> list[dict]:
+                       env: EnvironmentMaps | None = None, textures=None,
+                       slots_used: tuple | None = None) -> list[dict]:
     """Depth-peel num_layers layers of the transparent scene in front of
     the opaque depth and shade each (shade_transparent_layer): layer k's
     fragments are the nearest with depth(k - 1) < z < opaque depth (layer
@@ -854,7 +1048,9 @@ def transparent_layers(scene_t: DeviceScene, consts: FrameConstants,
         d, idb, g = raster.rasterize_gbuf(binned, width, height,
                                           zbound=(zlo, opaque_depth))
         layers.append(shade_transparent_layer(scene_t, consts, d, idb, g,
-                                              width, height, env=env))
+                                              width, height, env=env,
+                                              textures=textures,
+                                              slots_used=slots_used))
         zlo = d       # the next layer starts behind this one
     return layers
 
@@ -873,23 +1069,24 @@ def blend_layers(hdr: torch.Tensor, layers: list[dict]) -> torch.Tensor:
 def transparent_pass(scene_t: DeviceScene, consts: FrameConstants,
                      hdr: torch.Tensor, opaque_depth: torch.Tensor,
                      width: int, height: int, env=None, textures=None,
-                     num_layers: int = 2, full_height: int | None = None,
+                     num_layers: int = 2, slots_used: tuple | None = None,
+                     full_height: int | None = None,
                      y_offset=0) -> torch.Tensor:
     """Blended transparents (the reference's Model.h:45-65 transparent mesh
     split, rendered after the opaques): transparent_layers, composited
     back to front onto hdr (blend_layers). Order-independent up to
     num_layers-deep overlap; coplanar transparent fragments drop (each
-    layer is a strict peel). Textures and multichip bands (full_height,
-    y_offset) are not ported yet and raise."""
-    unported = {"textures": textures is not None,
-                "full_height": full_height is not None,
+    layer is a strict peel). Multichip bands (full_height, y_offset) are
+    not ported yet and raise."""
+    unported = {"full_height": full_height is not None,
                 "y_offset": not (isinstance(y_offset, int) and y_offset == 0)}
     asked = [k for k, v in unported.items() if v]
     if asked:
         raise NotImplementedError(f"transparent_pass: not ported yet: {asked}")
     return blend_layers(hdr, transparent_layers(scene_t, consts, opaque_depth,
                                                 width, height, num_layers,
-                                                env=env))
+                                                env=env, textures=textures,
+                                                slots_used=slots_used))
 
 
 # the material outputs the alpha-mask peel takes from the surface behind
@@ -899,21 +1096,29 @@ MATERIAL_PEEL_KEYS = ("albedo", "emissive", "roughness", "metalness",
 
 def _alpha_mask_peel(scene: DeviceScene, consts: FrameConstants,
                      binned: raster.BinnedTriangles, width: int, height: int,
-                     depth, tri_id, mask, wpos, n, mat: dict, coverage):
+                     depth, tri_id, mask, wpos, n, mat: dict, coverage,
+                     textures=None, aniso_taps: int = 0,
+                     slots_used: tuple | None = None,
+                     mip_jit: torch.Tensor | None = None):
     """Alpha-mask discard (ForwardLighting.hlsl:237-240): peel past the
     fragments whose alpha fails the cutout test (< 0.01) and re-resolve
     those pixels on the next surface behind them (one bounded K1 launch,
     window (depth, 2) where the fragment failed, empty elsewhere; a second
-    failing fragment leaves background). -> the merged (depth, tri_id,
-    mask, wpos, n, mat, coverage); a failed pixel's per-sample coverage
-    becomes whether the next surface passed."""
+    failing fragment leaves background); the next surface's material is
+    sampled as the frame's (textures, aniso_taps, slots_used, the mip
+    jitter; no telemetry). -> the merged (depth, tri_id, mask, wpos, n,
+    mat, coverage); a failed pixel's per-sample coverage becomes whether
+    the next surface passed."""
     fail = mask & (mat["alpha"] < 0.01)
     two = torch.full_like(depth, 2.0)
     zlo = torch.where(fail, depth, two)     # an empty window where passing
     d2, id2, g2 = raster.rasterize_gbuf(binned, width, height,
                                         zbound=(zlo, two))
     attrs2, mask2 = _attrs_from_gbuf(scene, consts, d2, id2, g2, width, height)
-    mat2 = material_pass(unit3(attrs2["wnrm"]), attrs2["mrow"], attrs2["ids"])
+    mat2 = material_pass(unit3(attrs2["wnrm"]), attrs2["mrow"], attrs2["ids"],
+                         uv=attrs2["uv"], wtan=attrs2["wtan"], textures=textures,
+                         aniso_taps=aniso_taps, slots_used=slots_used,
+                         mip_jitter=mip_jit)
     ok2 = mask2 & (mat2["alpha"] >= 0.01)
 
     def mrg(x1, x2):
@@ -1009,6 +1214,8 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                    shadow_maps: dict | None = None,
                    enable_alpha_mask: bool = False,
                    scene_transparent: DeviceScene | None = None,
+                   aniso_taps: int = 0,
+                   slots_used: tuple | None = None,
                    ssao_quality: str = "medium",
                    msaa_edge_resolve: bool | str = True,
                    dynamic_item_ids: tuple | None = None,
@@ -1037,12 +1244,17 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
     the motion vectors when they are on; None starts afresh).
     scene_transparent (the transparent part of split_transparent) is
     depth-peeled in two layers in front of the opaque depth and blended
-    over the frame before tonemap (transparent_pass). enable_alpha_mask
-    discards fragments whose sampled alpha fails the cutout test; without
-    textures there is no sampled alpha, and the frame is the one without
-    it, as in the reference."""
+    over the frame before tonemap (transparent_pass). textures (a
+    PackedTextures, or the f32 mip list) are sampled by every material
+    pass: the frame's with the R2 mip jitter (stochastic trilinear) and,
+    with aniso_taps > 1, the adaptive anisotropic walk on the diffuse slot
+    (its saturation as tex_aniso and tex_aniso_demand); slots_used
+    (slots_used_of of the scene's materials) skips the slots no material
+    references. enable_alpha_mask discards fragments whose sampled alpha
+    fails the cutout test (one bounded K1 peel); without textures there is
+    no sampled alpha, and the frame is the one without it, as in the
+    reference."""
     unported = {
-        "textures": textures is not None,
         "cas_sharpness": cas_sharpness is not None,
         "resize": ((out_width is not None and out_width != width)
                    or (out_height is not None and out_height != height)),
@@ -1052,19 +1264,26 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
         raise NotImplementedError(f"render_forward: not ported yet: {asked}")
 
     # the reference's gate: the peel needs a sampled alpha, so it runs only
-    # with textures (which raise above until they are ported)
+    # with textures
     alpha_test = enable_alpha_mask and textures is not None
     tel: dict = {}
     geo = geometry_pass(scene, consts, width, height, msaa=msaa,
                         return_binned=alpha_test,
                         pair_capacity=pair_capacity, tel=tel)
     depth, tri_id, attrs, mask, coverage = geo[:5]
-    mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"])
+    # stochastic trilinear: a per-pixel R2-dithered mip pick
+    mip_jit = (tex_ops.mip_jitter(height, width, device=depth.device)
+               if textures is not None else None)
+    mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"],
+                        uv=attrs["uv"], wtan=attrs["wtan"], textures=textures,
+                        aniso_taps=aniso_taps, slots_used=slots_used,
+                        mip_jitter=mip_jit, telemetry=tel)
     n = mat["normal"]
     if alpha_test:
         depth, tri_id, mask, attrs["wpos"], n, mat, coverage = _alpha_mask_peel(
             scene, consts, geo[5], width, height, depth, tri_id, mask,
-            attrs["wpos"], n, mat, coverage)
+            attrs["wpos"], n, mat, coverage, textures=textures,
+            aniso_taps=aniso_taps, slots_used=slots_used, mip_jit=mip_jit)
     th = (ssao_ops.tan_half(consts.proj_params[2])
           if enable_ssao or enable_ssr else None)
     d_h = pool2(depth) if enable_ssao or enable_ssr else None
@@ -1112,7 +1331,9 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                 w_sec, sec_rgb = _msaa_edge_secondary(
                     scene, consts, attrs, tri_id, depth, mask, coverage,
                     spot_vis, point_vis, dir_vis, width, height,
-                    enable_shadows, telemetry=tel, env=env, ao_map=ao_map)
+                    enable_shadows, telemetry=tel, env=env, ao_map=ao_map,
+                    textures=textures, aniso_taps=aniso_taps,
+                    slots_used=slots_used, mip_jit=mip_jit)
             else:
                 w_sec, sec_rgb = _msaa_edge_neighbor(
                     attrs, tri_id, depth, mask, coverage, hdr, width, height,
@@ -1133,7 +1354,8 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                                         tan_half_fov=th)
     if scene_transparent is not None and scene_transparent.num_tris_live > 0:
         hdr = transparent_pass(scene_transparent, consts, hdr, depth,
-                               width, height, env=env)
+                               width, height, env=env, textures=textures,
+                               slots_used=slots_used)
     ldr = pp.tonemap(hdr, output_display_curve, apply_gamma=apply_gamma)
     out = {"ldr": ldr, "hdr": hdr, "depth": depth, "tri_id": tri_id,
            "object_id": torch.where(mask, mat["object_id"],

@@ -1,6 +1,7 @@
 """Renderer — counterpart of ``vqengine_tpu/render/renderer.py``
 (VQRendererTPU): owns the device scene (its opaque and transparent
-parts) and its environment maps (built at load), packs the per-frame
+parts), its environment maps (built at load) and its textures, with the
+scene's texture-slot usage and alpha-mask permutation, packs the per-frame
 constants, renders the cached shadow maps of static casters and keeps the
 demand-sized binning capacity (the pair bucket).
 
@@ -132,12 +133,23 @@ class VQRendererTorch:
         self._pair_demand_max = 0
         # the scene's environment maps (graph.build_environment), or None
         self.env: graph.EnvironmentMaps | None = None
+        # the scene's textures (ops.texture.PackedTextures), or None
+        self.textures = None
+        # the alpha-mask permutation (ENABLE_ALPHA_MASK): on when a material
+        # carries a dedicated alpha-mask map (slot 3, material row 23)
+        self._any_alpha_mask = False
+        # the static texture-slot usage (graph.slots_used_of)
+        self._slots_used: tuple | None = None
 
-    def load_scene(self, buffers: SceneBuffers, equirect=None) -> None:
+    def load_scene(self, buffers: SceneBuffers, equirect=None,
+                   textures=None) -> None:
         """Upload the scene; with an equirect [He, We, 3] (the decoded
         environment, scene_load.LoadedScene.equirect) also build its
         environment maps on the device at the engine's default sizes, as
-        its _build_environment_maps does at load."""
+        its _build_environment_maps does at load; with textures (the
+        scene's PackedTextures, scene_load.LoadedScene.textures) move them
+        to the device."""
+        self.textures = textures.to(self.device) if textures is not None else None
         self.env = (graph.build_environment(equirect, self.device)
                     if equirect is not None else None)
         opaque, transparent = split_transparent(buffers)
@@ -146,6 +158,8 @@ class VQRendererTorch:
                         if transparent is not None else None)
         self.pair_bucket = None
         self._pair_demand_max = 0
+        self._any_alpha_mask = bool((buffers.materials[:, 23] >= 0).any())
+        self._slots_used = graph.slots_used_of(buffers.materials)
 
     def build_frame_constants(self, buffers: SceneBuffers, camera, lights,
                               **kw) -> graph.FrameConstants:
@@ -169,9 +183,14 @@ class VQRendererTorch:
                **flags) -> dict:
         """One forward frame (graph.render_forward) at the current pair
         bucket, lit by the scene's environment maps (env=None renders
-        without them), with the scene's transparent part blended over it;
-        the opaque pass's measured demand then updates the bucket. Flags
-        pass through: enable_shadows, shadow_dims, shadow_filter,
+        without them) and textured by the scene's textures (textures=None
+        renders without them), with the scene's transparent part blended
+        over it; the opaque pass's measured demand then updates the bucket.
+        The textures are sampled with the scene's slot usage and, where a
+        material has an alpha-mask map, the alpha-mask peel, as the
+        reference's renderer keys them at load; aniso_taps > 1 walks the
+        footprint of the anisotropic pixels. Flags pass through:
+        aniso_taps, enable_shadows, shadow_dims, shadow_filter,
         shadow_maps, msaa, enable_ssao and ssao_quality,
         enable_motion_vectors and dynamic_item_ids (a set of more than 16
         items takes the palette path, as it would in motion_vectors),
@@ -182,6 +201,9 @@ class VQRendererTorch:
         if self.scene is None:
             raise RuntimeError("load_scene first")
         flags.setdefault("env", self.env)
+        flags.setdefault("textures", self.textures)
+        flags.setdefault("enable_alpha_mask", self._any_alpha_mask)
+        flags.setdefault("slots_used", self._slots_used)
         ids = flags.get("dynamic_item_ids")
         if ids is not None and len(ids) > 16:
             flags["dynamic_item_ids"] = None

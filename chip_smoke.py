@@ -129,12 +129,37 @@ the final line:
      equal and every tap's mip level and row equal; each K1-bounded launch
      held bitwise against its plain version. The goldens (8) include
      textured_quad, gltf_roundtrip and sponza.
+  8d. tessellation (`[tess]` lines): the amplifiers of the full Terrain
+     (576 displaced quad patches, from both its cameras) and of StressTest's
+     TessRock (12 tri patches) on the card and the CPU, every output, the
+     snapped parameters, the collapsed set and each displacement texel
+     equal; the geomorph front end of four build_terrain_patch tiles at
+     1920x1080, its K3 launches (the [N, 17] morph rows among them) held
+     against the plain version and its setup against the CPU's; the
+     reduced StressTest (24 animated objects, the TessRock) over two
+     engine ticks and the terrain golden's frame, card vs CPU (the terrain
+     PNG predates the quad-patch Terrain, goldens.STALE_PNG: its scores are
+     printed, the card is held against the CPU);
+  9b. main paths (i) and (j) through engine/frame_loop.FrameLoop with the
+     engine's default flags, the environment and skydome: (i) StressTest
+     (649,412 triangles, 469 items) as the engine runs it: the hook
+     advances at 1/60, the shadow maps render in every frame (8 K2 views),
+     the 384 moved objects take motion's palette path, the TessRock
+     amplifies; (j) Terrain: the directional map precomputed in the first
+     tick, a 16-frame yaw sweep around camera 0 and one frame from camera 1
+     (top-down). Each holds every K1-MSAA, K2 and K3 launch of one tick
+     against its plain version first (`[tess] (i)`, `[tess] (j)` lines),
+     then 16 timed ticks: ms/frame, launches per frame, amplified and live
+     triangles, peak memory, and the tick's constants step alone on the
+     host clock (outside the window); (j) also times its sweep with the
+     constants built before the window, as (g) is timed.
 `--profile` adds stage rows (among them the environment term, the
 skydome, the environment build, SSAO, motion vectors, the SSR trace,
 denoise and composite, and the stress frame's material pass with and
-without textures) and traces the default frame of path (e) (no SSAO, SSR
-or motion), the full default frame of (g) and the stress frame of (h)
-(device ops and idle share of each).
+without textures, each amplifier alone, (i)'s maps in the frame and
+whole ticks of (i) and (j)) and traces the default frame of path (e) (no
+SSAO, SSR or motion), the full default frame of (g), the stress frame of
+(h) and ticks of (i) and (j) (device ops and idle share of each).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -954,10 +979,10 @@ def phase_env_card_vs_cpu(dev, env_cpu) -> None:
 
 
 def phase_goldens(dev) -> None:
-    from vqengine_tpu_torch.engine.goldens import (SCENES, TEXTURED,
+    from vqengine_tpu_torch.engine.goldens import (SCENES, STALE_PNG, TEXTURED,
                                                     golden_scores, render_golden)
     from vqengine_tpu_torch.entry import entry
-    for golden in (*SCENES, *TEXTURED):
+    for golden in (*(g for g in SCENES if g not in STALE_PNG), *TEXTURED):
         s = golden_scores(golden, render_golden(golden, dev))
         say(f"[golden] {golden}: SSIM {s['ssim']:.5f}, mean MAE "
             f"{s['mean_mae']:.5f}, worst block {s['block_mae']:.5f}")
@@ -1286,20 +1311,21 @@ def checked_launches(found: dict):
         palette._palette_lookup_cuda = k3
 
 
-def report_checked(label: str, found: dict, want: dict) -> None:
+def report_checked(label: str, found: dict, want: dict,
+                   tag: str = "[stress] (h)") -> None:
     """Print the launches checked_launches held against their plain
-    versions in (h)'s label; fail unless each kernel of want was checked
-    exactly that many times."""
+    versions, each line starting with tag and the label; fail unless each
+    kernel of want was checked exactly that many times."""
     for name, n in want.items():
         if found.get(name, (0,))[0] != n:
-            fail(f"(h) {label}: {found.get(name, (0,))[0]} {name} launches "
+            fail(f"{tag} {label}: {found.get(name, (0,))[0]} {name} launches "
                  f"checked, expected {n}")
     for name, (n, err, whats) in sorted(found.items()):
-        say(f"[stress] (h) {label}: {name}, {n} launches, each held against "
+        say(f"{tag} {label}: {name}, {n} launches, each held against "
             f"its plain version on the same inputs (ids, depths, coverage and "
             f"rows bitwise; G-buffer max |diff| {err}):")
         for what in whats:
-            say(f"[stress]     {name} {what}")
+            say(f"{tag.split()[0]}     {name} {what}")
 
 
 def texture_frames(d, width: int, height: int) -> dict:
@@ -2193,6 +2219,433 @@ def phase_profile_transparent(st, rt) -> None:
         say(f"[profile] stage {time_ms(fn, 10):8.3f} ms  {name}")
 
 
+# ---------------------------------------------------------------------------
+# tessellation: the amplifiers card vs CPU, (i) StressTest, (j) Terrain
+# ---------------------------------------------------------------------------
+
+STRESS_SMALL_DIMS = (2, 1, 5)   # the reduced StressTest: 24 animated objects
+AMPLIFIED = ("pos", "nrm", "tan", "uv", "item", "live")
+
+
+def reduced_stress_test(width: int, height: int):
+    """StressTest cut for a CPU comparison: augment_stress_test with dims
+    STRESS_SMALL_DIMS (24 animated objects and the TessRock), the 80
+    gradient spheres left out; no environment -> LoadedScene."""
+    from vqengine_tpu_torch.engine.scene_load import LoadedScene, find_data_dirs
+    from vqengine_tpu_torch.render.scene_buffers import assemble_scene
+    from vqengine_tpu_torch.scene.mesh import build_builtin_meshes
+    from vqengine_tpu_torch.scene.scenes import augment_stress_test
+    from vqengine_tpu_torch.scene.serialization import parse_scene_file
+    rep = parse_scene_file(find_data_dirs()[0] / "Levels" / "StressTest.xml")
+    lib, meshes = {}, build_builtin_meshes()
+    hook = augment_stress_test(rep, lib, dims=STRESS_SMALL_DIMS)
+    rep.objects = [o for o in rep.objects
+                   if not o.model.name.startswith("GradSphere")]
+    buffers, cams, lights = assemble_scene(rep, meshes, lib, draw_light_gizmos=True)
+    for c in cams:
+        c.aspect = width / height
+    return LoadedScene("StressTest", buffers, cams, lights, False, None, True,
+                       update_hook=hook)
+
+
+def geomorph_tiles(dev):
+    """Four scenes.build_terrain_patch tiles (3 LODs with geomorph
+    targets) on a renderer of `dev`, and a camera at 700 whose frame puts
+    the tiles inside their morph window -> (renderer, buffers, camera,
+    lights)."""
+    import numpy as np
+
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    from vqengine_tpu_torch.render.scene_buffers import DrawItem, build_scene_buffers
+    from vqengine_tpu_torch.scene.camera import Camera, FCameraParameters
+    from vqengine_tpu_torch.scene.light import ELightType, Light
+    from vqengine_tpu_torch.scene.material import Material
+    from vqengine_tpu_torch.scene.scenes import build_terrain_patch
+    from vqengine_tpu_torch.utils import math3d as m3
+    items = [DrawItem(f"tile{i}", build_terrain_patch(i % 2, i // 2, patches=2,
+                                                      res=64, num_lods=3),
+                      m3.Transform(), 0, i) for i in range(4)]
+    buffers = build_scene_buffers(items, [Material(name="m")])
+    p = FCameraParameters()
+    p.position = np.array([-210.0, 280.0, -700.0], np.float32)
+    p.pitch_deg, p.yaw_deg, p.far_z = 20.0, 15.0, 8000.0
+    r = VQRendererTorch(dev)
+    r.load_scene(buffers)
+    return r, buffers, Camera(p, aspect=W / H), [Light(type=ELightType.DIRECTIONAL)]
+
+
+def amplified(scene, c) -> dict:
+    """Both amplifiers of the scene on the frame c, each displacement
+    texel (x0, y0) recorded, and the snapped parameters and collapsed set
+    of each -> {name: CPU tensor}."""
+    from vqengine_tpu_torch.ops import tessellation as tess
+    out, texels, orig = {}, [], tess.displace_texels
+
+    def rec(uv, hh, wh):
+        sel = orig(uv, hh, wh)
+        texels.append(torch.stack([sel[0], sel[1]]).reshape(-1))
+        return sel
+    tess.displace_texels = rec
+    try:
+        for kind in ("patch", "tpatch"):
+            corners = getattr(scene, f"{kind}_corners")
+            if corners is None:
+                continue
+            quad = kind == "patch"
+            tpl = ((scene.patch_params, scene.patch_tri_idx) if quad
+                   else (scene.tpatch_bary, scene.tpatch_tri_idx))
+            item, scale = getattr(scene, f"{kind}_item"), getattr(scene, f"{kind}_tess_scale")
+            res = (tess.amplify if quad else tess.amplify_tri)(
+                corners, getattr(scene, f"{kind}_normals"), getattr(scene, f"{kind}_uvs"),
+                item, c.world, c.camera_pos, c.frustum_planes, *tpl, scale,
+                heightmap=getattr(scene, f"{kind}_heightmap"),
+                disp_scale=getattr(scene, f"{kind}_disp_scale"))
+            for name, t in zip(AMPLIFIED, res):
+                out[f"{kind} {name}"] = t.cpu()
+            out[f"{kind} texels"] = torch.cat(texels).cpu()
+            texels.clear()
+            cw = tess._world_corners(corners, item, c.world)
+            snapped = (tess.snap_params(tpl[0], *tess.edge_factors(cw, c.camera_pos, scale))
+                       if quad else
+                       tess.snap_bary(tpl[0], *tess.tri_edge_factors(cw, c.camera_pos, scale)))
+            out[f"{kind} snapped"] = snapped.cpu()
+            out[f"{kind} collapsed"] = tess._collapsed(snapped, tpl[1]).cpu()
+    finally:
+        tess.displace_texels = orig
+    return out
+
+
+def amplified_text(a: dict, kind: str) -> str:
+    n = a[f"{kind} collapsed"].numel()
+    return (f"{n} amplified triangles ({a[f'{kind} live'].numel()} with the "
+            f"padding), {int(a[f'{kind} collapsed'].sum())} collapsed, "
+            f"{int(a[f'{kind} live'].sum())} live after the cull and the "
+            f"collapse; {a[f'{kind} texels'].numel() // 2} displacement taps")
+
+
+def phase_tess_card_vs_cpu(dev) -> None:
+    """`[tess]` lines: the amplifiers of the full Terrain (576 quad patches,
+    from both its cameras) and of StressTest's TessRock on the card and
+    the CPU, every output and the snapped parameters, the collapsed set
+    and each displacement texel bitwise; the geomorph front end of four
+    build_terrain_patch tiles at 1920x1080 with its K3 launches (the
+    [N, 17] morph rows among them) held against the plain version and its
+    setup against the CPU's; the reduced StressTest's two frames (the
+    engine's default flags, the hook advanced once, the maps in the frame)
+    and the terrain golden's frame, card vs CPU."""
+    from vqengine_tpu_torch.engine.frame_loop import FrameLoop
+    from vqengine_tpu_torch.engine.goldens import golden_scores, render_golden
+    from vqengine_tpu_torch.engine.scene_load import load_scene
+    from vqengine_tpu_torch.engine.settings import FGraphicsSettings, render_flags
+    from vqengine_tpu_torch.render import graph
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    cpu = torch.device("cpu")
+    for name, kind, cams in (("Terrain", "patch", (0, 1)), ("StressTest", "tpatch", (0,))):
+        s = load_scene(name, W, H)
+        got = {}
+        for d in (dev, cpu):
+            r = VQRendererTorch(d)
+            r.load_scene(s.buffers)
+            got[d.type] = [amplified(r.scene, r.build_frame_constants(
+                s.buffers, s.cameras[k], s.lights)) for k in cams]
+        for k, a, b in zip(cams, got["cuda"], got["cpu"]):
+            bad = {n: int((a[n] != b[n]).sum()) for n in a if not bitwise_equal(a[n], b[n])}
+            say(f"[tess] {name} camera {k}: {amplified_text(a, kind)}; card vs "
+                f"CPU: corner tables, items, tri_live, snapped parameters, the "
+                f"collapsed set and every texel {'equal' if not bad else bad}")
+            if bad:
+                fail(f"{name} amplifier card vs CPU: {bad}")
+    r, buffers, cam, lights = geomorph_tiles(dev)
+    c = r.build_frame_constants(buffers, cam, lights)
+    with checked_launches({}) as found:
+        setup, _ = graph.geometry_setup_gbuf(r.scene, c, W, H)
+    report_checked("geomorph tiles, front end", found, {"palette": 3}, tag="[tess] (j)")
+    if not any(", 17]" in w for w in found["palette"][2]):
+        fail("the geomorph front end launched no K3 on [N, 17] morph rows")
+    rc, buffers_c, cam_c, lights_c = geomorph_tiles(cpu)
+    setup_c, _ = graph.geometry_setup_gbuf(
+        rc.scene, rc.build_frame_constants(buffers_c, cam_c, lights_c), W, H)
+    bad = [f for f in ("edges9", "zc", "vert_scale", "valid", "tile_lo", "tile_hi")
+           if not bitwise_equal(getattr(setup, f).cpu(), getattr(setup_c, f))]
+    say(f"[tess] geomorph tiles at {W}x{H}: {int(setup.valid.sum())} live "
+        f"triangles of {setup.valid.numel()}; setup card vs CPU "
+        f"{'bitwise' if not bad else 'differs in ' + str(bad)}")
+    if bad:
+        fail(f"geomorph setup card vs CPU differs in {bad}")
+    flags = dict(render_flags(FGraphicsSettings()), shadow_dims=SMALL_DIMS)
+    frames = {}
+    for d in (dev, cpu):
+        s = reduced_stress_test(SMALL_W, SMALL_H)
+        r = VQRendererTorch(d)
+        r.load_scene(s.buffers)
+        loop = FrameLoop(r, s, SMALL_W, SMALL_H, flags)
+        frames[d.type] = [{k: v.cpu() for k, v in loop.tick().items()
+                           if k in ("ldr", "tri_id", "motion", "ao")}
+                          for _ in range(2)]
+        moved = len(loop.dynamic_items)
+    for i, (a, b) in enumerate(zip(frames["cuda"], frames["cpu"])):
+        same = a["tri_id"] == b["tri_id"]
+        diff = {k: float((a[k] - b[k])[same].abs().max()) for k in ("ldr", "motion", "ao")}
+        say(f"[tess] reduced StressTest {SMALL_W}x{SMALL_H} frame {i} (engine "
+            f"default flags, maps in the frame, {moved} moved items, the "
+            f"TessRock amplified), card vs CPU: tri_id agrees on "
+            f"{float(same.float().mean()):.6f}; max |diff| {diff}")
+        if (float(same.float().mean()) < 0.999 or not diff["ldr"] <= ENTRY_TOL
+                or not diff["motion"] <= MOTION_TOL or not diff["ao"] <= AO_TOL):
+            fail(f"reduced StressTest frame {i} card vs CPU: {diff}")
+    imgs = [render_golden("terrain", d) for d in (dev, cpu)]
+    diff = float(abs(imgs[0] - imgs[1]).max())
+    for d, img in zip(("card", "CPU"), imgs):
+        g = golden_scores("terrain", img)
+        say(f"[tess] golden terrain on the {d}: SSIM {g['ssim']:.5f}, mean MAE "
+            f"{g['mean_mae']:.5f}, worst block {g['block_mae']:.5f} (the PNG "
+            f"predates the quad-patch Terrain: goldens.STALE_PNG)")
+    say(f"[tess] golden terrain's frame card vs CPU: max |ldr diff| {diff}")
+    if not diff <= ENTRY_TOL:
+        fail(f"terrain golden frame card vs CPU {diff} > {ENTRY_TOL}")
+
+
+def run_loop(loop, n: int, card: str, label: str, before=None) -> dict:
+    """n engine ticks of loop (the hook advanced by 1/60, the constants
+    rebuilt, the frame rendered), CUDA events around each, with the launch
+    counts set to 0 first; before(i) runs ahead of tick i (a camera move).
+    Ahead of each tick, outside its window, the tick's constants step
+    (loop.constants and their upload) runs alone on the host clock, synced
+    before and after: the host's share of a tick. Fails on overflow,
+    non-finite output, a plain version run on CUDA tensors, or frames
+    after the first without motion. -> launches."""
+    from vqengine_tpu_torch.ops import _backend
+    torch.cuda.synchronize()
+    _backend.reset_counts()
+    times, host = [], []
+    for i in range(n):
+        if before is not None:
+            before(i)
+        t0 = time.perf_counter()
+        loop_consts(loop)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = loop.tick()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        ldr = out["ldr"]
+        if tuple(ldr.shape) != (H, W, 3) or not bool(torch.isfinite(ldr).all()):
+            fail(f"{label} frame {i}: ldr {tuple(ldr.shape)} not finite/shaped")
+        if int(out["overflow"].sum()):
+            fail(f"{label} frame {i}: overflow {out['overflow'].tolist()}")
+        for k in ("ao", "motion", "ssr_history"):
+            if k in out and not bool(torch.isfinite(out[k]).all()):
+                fail(f"{label} frame {i}: {k} not finite")
+        if i and not float(out["motion"].abs().max()) > 0:
+            fail(f"{label} frame {i}: nothing moved, but motion is 0")
+    launches = dict(_backend.launches)
+    plain = dict(_backend.plain_cuda_calls)
+    ms = sorted(times)
+    say(f"[main] {label}: {n} frames, overflow 0, finite; ms/frame (CUDA "
+        f"events, host syncs, the hook and the constants included): mean "
+        f"{sum(ms) / n:.3f}, median {ms[n // 2]:.3f}, min {ms[0]:.3f}, max "
+        f"{ms[-1]:.3f} on {card}")
+    say(f"[main] {label}: the constants step alone (host clock, synced): mean "
+        f"{sum(host) / n:.3f}, min {min(host):.3f}, max {max(host):.3f} ms")
+    say(f"[main] {label}: kernel launches {launches}; plain-version calls on "
+        f"CUDA tensors {plain}")
+    if max(plain.values()) != 0:
+        fail(f"{label}: plain versions ran on CUDA tensors: {plain}")
+    return launches
+
+
+def loop_consts(loop):
+    from vqengine_tpu_torch.render.graph import frame_constants_from_numpy
+    return frame_constants_from_numpy(loop.constants(), loop.renderer.device)
+
+
+def live_after_setup(r, c) -> tuple[int, int]:
+    """(amplified triangles that pass the triangle setup, all triangles
+    that pass it) in the frame c."""
+    from vqengine_tpu_torch.render import graph
+    setup, _ = graph.geometry_setup_gbuf(r.scene, c, W, H)
+    return (int(setup.valid[r.scene.num_tris_live:].sum()), int(setup.valid.sum()))
+
+
+def phase_stresstest_path(dev, card: str) -> tuple[dict, tuple]:
+    """(i) the engine's StressTest level at 1920x1080 as the engine runs
+    it (engine/frame_loop.FrameLoop): the hook advances at 1/60, so the
+    shadow maps render in every frame (8 K2 views over all 649,412
+    triangles), the moved set holds the 384 animated objects (motion on
+    K3's palette path), the TessRock's 12 tri patches amplify; the
+    engine's default flags, the environment and skydome. Two warm-up
+    ticks, one tick with every K1, K2 and K3 launch held against its plain
+    version (uncounted), then 16 timed ticks -> (launches, state)."""
+    from vqengine_tpu_torch.engine.frame_loop import FrameLoop
+    from vqengine_tpu_torch.engine.scene_load import load_scene
+    from vqengine_tpu_torch.engine.settings import FGraphicsSettings, render_flags
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    t0 = time.perf_counter()
+    s = load_scene("StressTest", W, H)
+    r = VQRendererTorch(dev)
+    r.load_scene(s.buffers, equirect=s.equirect, textures=s.textures)
+    torch.cuda.synchronize()
+    t_load = (time.perf_counter() - t0) * 1e3
+    loop = FrameLoop(r, s, W, H, render_flags(FGraphicsSettings()))
+    b = s.buffers
+    casters = [l.type.name for l in s.lights if l.enabled and l.casts_shadows]
+    say(f"[tess] (i) StressTest: {b.indices.shape[0]} triangles (all LODs), "
+        f"{len(b.items)} items, {b.tpatch_corners.shape[0]} tri patches, "
+        f"casters {casters}, an update hook; load and upload {t_load:.1f} ms "
+        f"(host clock)")
+    if loop.cache_shadow_maps or loop.hook is None:
+        fail("(i) StressTest would cache its shadow maps")
+    for _ in range(2):                            # warm-up: the moved set fills
+        loop.tick()
+    with checked_launches({}) as found:
+        loop.tick()
+    report_checked("frame", found, {"raster_gbuf_msaa": 1, "raster_vis": 8,
+                                    "palette": 14}, tag="[tess] (i)")
+    c = loop_consts(loop)
+    amp = amplified(r.scene, c)
+    live_amp, live_all = live_after_setup(r, c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = N_FRAMES
+    got = run_loop(loop, n, card, "(i) StressTest: engine default (MSAA, SSAO, "
+                   "motion on the palette path, SSR), maps in the frame, "
+                   "environment and skydome, the TessRock amplified")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if (got["raster_gbuf_msaa"] != n or got["raster_vis"] != 8 * n
+            or got["palette"] != 14 * n or got["raster_gbuf"]):
+        fail(f"(i) frames launched {got}")
+    if len(loop.dynamic_items) <= 16:
+        fail(f"(i) only {len(loop.dynamic_items)} items moved")
+    say(f"[main] (i) launches per frame {({k: v / n for k, v in got.items()})}; "
+        f"{len(loop.dynamic_items)} moved items; TessRock: "
+        f"{amplified_text(amp, 'tpatch')}, {live_amp} past the triangle setup "
+        f"({live_all} triangles of the frame past it); peak device memory "
+        f"{peak:.1f} MiB; pair bucket {r.pair_bucket}")
+    return got, (r, loop)
+
+
+def phase_terrain_path(dev, card: str) -> tuple[dict, tuple]:
+    """(j) the engine's Terrain level at 1920x1080 (576 displaced quad
+    patches, 56,448 amplified triangles a frame): the Stationary
+    directional caster's maps precomputed once in the first tick (1 K2
+    view), then a tick with every launch held against its plain version
+    (uncounted), 16 timed ticks of a yaw sweep around camera 0 and one
+    from camera 1 (top-down, pitch 85: the far factors) -> (launches,
+    state)."""
+    from vqengine_tpu_torch.engine.frame_loop import FrameLoop
+    from vqengine_tpu_torch.engine.scene_load import load_scene
+    from vqengine_tpu_torch.engine.settings import FGraphicsSettings, render_flags
+    from vqengine_tpu_torch.ops import _backend
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    s = load_scene("Terrain", W, H)
+    r = VQRendererTorch(dev)
+    r.load_scene(s.buffers, equirect=s.equirect, textures=s.textures)
+    loop = FrameLoop(r, s, W, H, render_flags(FGraphicsSettings()))
+    if not loop.cache_shadow_maps:
+        fail("(j) Terrain would render its shadow maps in every frame")
+    torch.cuda.synchronize()
+    _backend.reset_counts()
+    t0 = time.perf_counter()
+    loop.tick()                                   # the precompute, then a frame
+    torch.cuda.synchronize()
+    first = dict(_backend.launches)
+    say(f"[tess] (j) Terrain: {s.buffers.indices.shape[0]} triangles, "
+        f"{s.buffers.patch_corners.shape[0]} quad patches; first tick (the "
+        f"precompute of {sorted(loop.static_maps)} and a frame) "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock), launches {first}")
+    if first["raster_vis"] != 1:
+        fail(f"(j) the precompute launched K2 {first['raster_vis']} times")
+    with checked_launches({}) as found:
+        loop.tick()
+    report_checked("frame", found, {"raster_gbuf_msaa": 1, "palette": 5},
+                   tag="[tess] (j)")
+    cam = loop.camera
+    base_yaw = cam.yaw
+    counts = []
+    for k in (0, 1):
+        loop.camera = s.cameras[k]
+        c = loop_consts(loop)
+        counts.append((amplified(r.scene, c), *live_after_setup(r, c)))
+    loop.camera = cam
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = N_FRAMES
+    sweep = run_loop(loop, n, card, "(j) Terrain: engine default (MSAA, SSAO, "
+                     "motion, SSR), cached directional map, environment and "
+                     "skydome, 576 patches amplified; yaw sweep around camera 0",
+                     before=lambda i: sweep_camera(cam, i, base_yaw))
+    consts, prev = [], None
+    for i in range(n):
+        sweep_camera(cam, i, base_yaw)
+        c = r.build_frame_constants(s.buffers, cam, s.lights, prev_view_proj=prev)
+        consts.append(c)
+        prev = c.view_proj.cpu().numpy()
+    cam.yaw = base_yaw
+    built = run_frames(r, consts, card, "(j) Terrain, the same sweep with its "
+                       "constants built before the window, as (g) is timed",
+                       carry_ssr=True, shadow_maps=loop.static_maps,
+                       dynamic_item_ids=(), **loop.flags)
+    loop.camera = s.cameras[1]
+    top = run_loop(loop, 1, card, "(j) Terrain from camera 1 (top-down, pitch "
+                   "85: the far factors)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if (sweep["raster_gbuf_msaa"] != n or sweep["palette"] != 5 * n
+            or sweep["raster_vis"] or sweep["raster_gbuf"] or built != sweep):
+        fail(f"(j) frames launched {sweep}, with the constants built before {built}")
+    for k, (amp, live_amp, live_all) in enumerate(counts):
+        say(f"[main] (j) camera {k}: {amplified_text(amp, 'patch')}, {live_amp} "
+            f"past the triangle setup ({live_all} triangles of the frame past it)")
+        if amp["patch collapsed"].numel() != 56448:
+            fail(f"(j) amplified {amp['patch collapsed'].numel()} triangles")
+    say(f"[main] (j) launches per frame {({k: v / n for k, v in sweep.items()})}; "
+        f"peak device memory {peak:.1f} MiB; pair bucket {r.pair_bucket}")
+    launches = {k: first[k] + sweep[k] + built[k] + top[k] for k in sweep}
+    return launches, (r, loop, s)
+
+
+def phase_profile_tess(stresstest, terrain) -> None:
+    """Stage rows of (i) and (j) (CUDA events, 10 runs each, host syncs
+    included): each amplifier alone, the front end with it, (i)'s shadow
+    maps in the frame, whole ticks; and a trace of PROFILE_FRAMES ticks of
+    each (traces/stresstest_trace.json, traces/terrain_trace.json)."""
+    from vqengine_tpu_torch.ops import tessellation as tess
+    from vqengine_tpu_torch.render import graph
+    ri, li = stresstest
+    rj, lj, sj = terrain
+    lj.camera = sj.cameras[0]
+    ci, cj = loop_consts(li), loop_consts(lj)
+    si, sj_ = ri.scene, rj.scene
+    stages = {
+        "(j) amplify: 576 quad patches, displaced (56,448 triangles)": lambda: tess.amplify(
+            sj_.patch_corners, sj_.patch_normals, sj_.patch_uvs, sj_.patch_item,
+            cj.world, cj.camera_pos, cj.frustum_planes, sj_.patch_params,
+            sj_.patch_tri_idx, sj_.patch_tess_scale, heightmap=sj_.patch_heightmap,
+            disp_scale=sj_.patch_disp_scale),
+        "(i) amplify_tri: the TessRock's 12 tri patches, displaced": lambda: tess.amplify_tri(
+            si.tpatch_corners, si.tpatch_normals, si.tpatch_uvs, si.tpatch_item,
+            ci.world, ci.camera_pos, ci.frustum_planes, si.tpatch_bary,
+            si.tpatch_tri_idx, si.tpatch_tess_scale, heightmap=si.tpatch_heightmap,
+            disp_scale=si.tpatch_disp_scale),
+        "(j) front end with the amplifier (cull, LOD, transforms, setup, pack)":
+            lambda: graph.geometry_setup_gbuf(sj_, cj, W, H),
+        "(i) front end with the amplifier (649,412 static triangles)":
+            lambda: graph.geometry_setup_gbuf(si, ci, W, H),
+        "(i) shadow maps in the frame (8 K2 views, all triangles)":
+            lambda: graph.render_shadow_maps(si, ci),
+        "(i) whole tick (hook, constants, frame)": li.tick,
+        "(j) whole tick (constants, frame)": lj.tick,
+    }
+    for name, fn in stages.items():
+        say(f"[profile] stage {time_ms(fn, 10):8.3f} ms  {name}")
+    trace_frames("stresstest frames", "stresstest_trace.json",
+                 "(i) StressTest ticks", li.tick)
+    trace_frames("terrain frames", "terrain_trace.json", "(j) Terrain ticks", lj.tick)
+
+
 def check_imports() -> None:
     bad = sorted(m for m in sys.modules if m in ("jax", "vqengine_tpu")
                  or m.startswith(("jax.", "vqengine_tpu.")))
@@ -2232,12 +2685,17 @@ def main() -> None:
     lt = timed("main path (f)", phase_transparent_path, card, st, rt)
     lg = timed("main path (g)", phase_default_path, dev, card, sponza, renderer)
     lh, stress = timed("main path (h)", phase_stress_path, dev, card)
-    launches = {k: launches[k] + lt[k] + lg[k] + lh[k] for k in launches}
+    timed("tessellation card vs CPU", phase_tess_card_vs_cpu, dev)
+    li, stresstest = timed("main path (i)", phase_stresstest_path, dev, card)
+    lj, terrain = timed("main path (j)", phase_terrain_path, dev, card)
+    launches = {k: launches[k] + lt[k] + lg[k] + lh[k] + li[k] + lj[k]
+                for k in launches}
     if "--profile" in sys.argv[1:]:
         # timed before the traced frames, as phase_profile times its stages
         phase_profile_transparent(st, rt)
         phase_profile(sponza, renderer)
         phase_profile_stress(stress)
+        phase_profile_tess(stresstest, terrain)
     check_imports()
     kernels = [
         dict(name="palette", route="cuda",

@@ -688,3 +688,71 @@ def test_textured_frames_on_card(cuda):
             assert torch.equal(la, lb) and torch.equal(ra, rb)
         for k in ("tex_aniso", "tex_aniso_demand"):
             assert float(o["saturation"][k]) == float(oc["saturation"][k]), k
+
+
+def _amplified_on(device, name: str, camera: int) -> list:
+    """The level's amplifier outputs (both patch domains) and every
+    displacement texel on `device`, moved to the CPU."""
+    from vqengine_tpu_torch.ops import tessellation as tess
+    s = load_scene(name, WIDTH, HEIGHT)
+    r = VQRendererTorch(device)
+    r.load_scene(s.buffers)
+    c = r.build_frame_constants(s.buffers, s.cameras[camera], s.lights)
+    sc, out, orig = r.scene, [], tess.displace_texels
+
+    def rec(uv, hh, wh):
+        sel = orig(uv, hh, wh)
+        out.extend((sel[0].cpu(), sel[1].cpu()))
+        return sel
+    tess.displace_texels = rec
+    try:
+        if sc.patch_corners is not None:
+            out += [t.cpu() for t in tess.amplify(
+                sc.patch_corners, sc.patch_normals, sc.patch_uvs, sc.patch_item,
+                c.world, c.camera_pos, c.frustum_planes, sc.patch_params,
+                sc.patch_tri_idx, sc.patch_tess_scale,
+                heightmap=sc.patch_heightmap, disp_scale=sc.patch_disp_scale)]
+        if sc.tpatch_corners is not None:
+            out += [t.cpu() for t in tess.amplify_tri(
+                sc.tpatch_corners, sc.tpatch_normals, sc.tpatch_uvs,
+                sc.tpatch_item, c.world, c.camera_pos, c.frustum_planes,
+                sc.tpatch_bary, sc.tpatch_tri_idx, sc.tpatch_tess_scale,
+                heightmap=sc.tpatch_heightmap, disp_scale=sc.tpatch_disp_scale)]
+    finally:
+        tess.displace_texels = orig
+    return out
+
+
+@pytest.mark.parametrize("name,camera", [("Terrain", 0), ("Terrain", 1),
+                                         ("StressTest", 0)])
+def test_amplifier_on_card_matches_cpu(cuda, name, camera):
+    """The amplifiers of the full levels (Terrain's 576 quad patches from
+    both cameras, StressTest's TessRock) on the card: every displacement
+    texel, corner table, item and tri_live equal to the CPU's."""
+    got, ref = _amplified_on(cuda, name, camera), _amplified_on(torch.device("cpu"),
+                                                                name, camera)
+    assert len(got) == len(ref) > 6
+    for a, b in zip(got, ref):
+        assert bitwise(a, b)
+
+
+def test_morph_rows_on_card(cuda):
+    """transform_clip_corners_morph: its K3 lookup of [3T, 17] rows (the
+    matrix and the morph factor) bitwise against the plain version, and
+    the lerped clip corners equal to the CPU's."""
+    g = torch.Generator().manual_seed(17)
+    t, n = 5000, 40
+    pos = torch.randn(3 * t, 3, generator=g) * 20
+    mid = pos + torch.randn(3 * t, 3, generator=g)
+    ti = torch.randint(0, n, (t,), generator=g, dtype=torch.int32)
+    mvps = torch.randn(n, 4, 4, generator=g)
+    w = torch.rand(n, generator=g)
+    table = torch.cat([mvps.reshape(n, 16), w[:, None]], dim=1).to(cuda)
+    item3 = ti.repeat_interleave(3).to(cuda)
+    assert bitwise(palette.palette_lookup(item3, table),
+                   palette.palette_lookup_plain(item3, table))
+    before = _backend.launches["palette"]
+    out = raster.transform_clip_corners_morph(
+        *[a.to(cuda) for a in (pos, mid, ti, mvps, w)])
+    assert _backend.launches["palette"] == before + 1
+    assert bitwise(out.cpu(), raster.transform_clip_corners_morph(pos, mid, ti, mvps, w))

@@ -31,6 +31,7 @@ from vqengine_tpu.utils import math3d as jm3
 from vqengine_tpu_torch.engine.scene_load import load_scene
 from vqengine_tpu_torch.ops import ffx as tffx
 from vqengine_tpu_torch.ops import ssao as tssao
+from vqengine_tpu_torch.ops.texture import exp_xla
 from vqengine_tpu_torch.render import graph as tg
 from vqengine_tpu_torch.render.renderer import VQRendererTorch
 from vqengine_tpu_torch.utils import math3d as tm3
@@ -40,7 +41,6 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 FW, FH = 96, 48                 # the Default frame: every preset fits
 H2, W2 = FH // 2, FW // 2       # the step scene: the frame's half resolution
-BLUR_TOL = 2e-6                 # the blur's exp weights: ulps of exp
 PRESETS = list(tssao.PRESETS)
 
 
@@ -233,17 +233,28 @@ def test_importance_map_bitwise():
                        jssao.importance_map(jnp.asarray(ao)))
 
 
+def test_exp_matches_xla():
+    """texture.exp_xla against jnp.exp on 2,500,000 inputs over [-100,
+    100], the blur's range [-20, 0] and the flush edge near -87.5:
+    bitwise (torch.exp is not)."""
+    rng = np.random.default_rng(9)
+    x = np.concatenate([rng.uniform(-100, 100, 1_000_000), rng.uniform(-20, 0, 1_000_000),
+                        rng.uniform(-88.0, -87.0, 500_000)]).astype(np.float32)
+    ref = jnp.exp(jnp.asarray(x))
+    assert_bitwise(exp_xla(torch.from_numpy(x)), ref)
+    assert (torch.exp(torch.from_numpy(x)).numpy() != np.asarray(ref)).any()
+
+
 def test_blur_and_upsample_match_jax(step_scene):
     """_bilateral_blur and upsample_bilateral (exact and short fine sizes)
-    within BLUR_TOL: their weights go through exp, whose last ulp the two
-    libraries round otherwise."""
+    bitwise: their weights go through XLA's exp (texture.exp_xla)."""
     depth, _ = step_scene
     rng = np.random.default_rng(8)
     ao = rng.uniform(0.2, 1, (H2, W2)).astype(np.float32)
     zv = np.asarray(jssao.view_depth_from_ndc(jnp.asarray(depth), 0.1, 100.0))
     ref = jssao._bilateral_blur(jnp.asarray(ao), jnp.asarray(zv))
     out = tssao._bilateral_blur(torch.from_numpy(ao), torch.from_numpy(zv))
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=BLUR_TOL)
+    assert_bitwise(out, ref)
     zf = np.repeat(np.repeat(zv, 2, 0), 2, 1) + rng.uniform(0, 0.2, (2 * H2, 2 * W2))
     zf = zf.astype(np.float32)
     for fh, fw in ((2 * H2, 2 * W2), (2 * H2 - 1, 2 * W2 - 1)):
@@ -251,8 +262,7 @@ def test_blur_and_upsample_match_jax(step_scene):
                                        jnp.asarray(zf[:fh, :fw]))
         out = tssao.upsample_bilateral(torch.from_numpy(ao), torch.from_numpy(zv),
                                        torch.from_numpy(zf[:fh, :fw]))
-        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
-                                   atol=BLUR_TOL)
+        assert_bitwise(out, ref)
     with pytest.raises(ValueError):   # the reference's pad refuses it too
         tssao.upsample_bilateral(torch.from_numpy(ao), torch.from_numpy(zv),
                                  torch.zeros(2 * H2 + 1, 2 * W2))
@@ -267,7 +277,7 @@ def test_ssao_preset_matches_jax(step_scene, preset):
     """ssao() with each preset's taps, refinement and deinterleave on the
     step scene: every tap's level and texel equal (0 fetch mismatches), the
     AO before the blur bitwise, the refinement's saturation equal, the
-    blurred AO within BLUR_TOL."""
+    blurred AO bitwise."""
     depth, n = step_scene
     taps, extra, deint = tssao.PRESETS[preset]
     rv, tv = view_infos()
@@ -285,7 +295,7 @@ def test_ssao_preset_matches_jax(step_scene, preset):
     assert set(t_tel) == set(j_tel)
     for k in j_tel:
         assert float(t_tel[k]) == float(j_tel[k]), k
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=BLUR_TOL)
+    assert_bitwise(out, ref)
     assert float(out.min()) < 0.9        # the step occludes something
 
 
@@ -324,7 +334,7 @@ def test_render_ssao_branch_matches_jax(default_frame, preset):
     """VQRendererTorch.render with enable_ssao and each ssao_quality
     (lowest and low at quarter resolution) on the Default scene: out["ao"]
     against the reference's SSAO branch on the same depth and normals, 0
-    tap fetch mismatches, within BLUR_TOL, the same saturation; the AO
+    tap fetch mismatches, bitwise, the same saturation; the AO
     darkens the frame's ambient term and nothing else."""
     r, c, depth, n = default_frame
     ref_calls, port_calls = [], []
@@ -338,7 +348,7 @@ def test_render_ssao_branch_matches_jax(default_frame, preset):
     assert fetch_mismatches(ref_calls, port_calls) == [0] * len(ref_calls)
     ao = out["ao"]
     assert ao.shape == (FH, FW)
-    np.testing.assert_allclose(ao.numpy(), np.asarray(ref), rtol=0, atol=BLUR_TOL)
+    assert_bitwise(ao, ref)
     for k in j_tel:
         assert float(out["saturation"][k]) == float(j_tel[k]), k
     assert float(ao.min()) < 0.95 and float(ao.max()) <= 1.0

@@ -48,9 +48,15 @@ SCENES = {"hello_triangle": ("HelloTriangle", {}),
           "default_pcf": ("Default", {"shadow_dims": (128, 64, 128),
                                       "shadow_filter": "pcf"}),
           "envmap_unit_test": ("EnvironmentMapUnitTest", {}),
-          "sponza": ("Sponza", {"shadow_dims": (128, 64, 256)})}
+          "sponza": ("Sponza", {"shadow_dims": (128, 64, 256)}),
+          "terrain": ("Terrain", {"shadow_dims": (64, 64, 128)})}
 # the graph-level textured goldens: render_golden builds their scenes
 TEXTURED = ("textured_quad", "gltf_roundtrip")
+# goldens whose PNG predates their scene: tests/goldens/terrain.png shows
+# the Terrain of geomorph tiles that the JAX package replaced by quad
+# patches (b04d32a), so the reference's own render misses its bars too;
+# callers hold the card and the CPU against each other instead
+STALE_PNG = ("terrain",)
 SSIM_MIN, MEAN_MAE_MAX, BLOCK_MAE_MAX = 0.985, 0.01, 0.08
 
 

@@ -200,6 +200,10 @@ class LoadedScene:
     # and its preset's MaxCLL (nits; for the HDR10 encode)
     equirect: np.ndarray | None = None
     env_max_cll: float = 0.0
+    # the scene's per-frame animation (StressTest's StressTestAnimation),
+    # called as hook(engine, dt) with engine.scene_buffers the buffers;
+    # engine/frame_loop.FrameLoop drives it
+    update_hook: object | None = None
 
 
 def load_scene(name: str, width: int, height: int,
@@ -218,7 +222,7 @@ def load_scene(name: str, width: int, height: int,
     lib, tex_paths = load_material_lib(data_dirs, tm)
     rep = parse_scene_file(path)
     meshes = build_builtin_meshes()
-    augment_scene(rep.name, rep, lib, meshes, data_dirs=data_dirs)
+    hook = augment_scene(rep.name, rep, lib, meshes, data_dirs=data_dirs)
     for mname, alpha in (material_alpha or {}).items():
         lib[mname].alpha = float(alpha)
     used = {o.model.material_name for o in rep.objects if o.model.material_name}
@@ -240,7 +244,8 @@ def load_scene(name: str, width: int, height: int,
                                               or rep.env_map_path),
                        textures=textures,
                        has_shadow_casters=has_casters,
-                       equirect=equirect, env_max_cll=max_cll)
+                       equirect=equirect, env_max_cll=max_cll,
+                       update_hook=hook)
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +271,7 @@ def stress_textures(size: int = 512) -> tuple[TextureManager, dict]:
     return tm, ids
 
 
-def sponza_stress(device=torch.device("cpu")):
+def sponza_stress(device=torch.device("cuda")):
     """bench.py's Sponza stress scene (bench.build_sponza_stress): the
     Sponza-substitute colonnade exported to a .glb (in a temporary
     directory of its own) and loaded back through scene/gltf.py, 220

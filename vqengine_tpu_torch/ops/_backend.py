@@ -36,12 +36,13 @@ torch.set_float32_matmul_precision("highest")
 
 
 @functools.cache
-def libm_f32(name: str):
-    """libm's f32 function `name` (tanf, cosf, sinf) through ctypes: XLA's
-    CPU backend calls these for the reference's f32 tan, cos and sin, which
-    torch rounds otherwise; the port calls them on the host."""
+def libm_f32(name: str, nargs: int = 1):
+    """libm's f32 function `name` of nargs arguments (tanf, cosf, sinf,
+    atan2f) through ctypes: XLA's CPU backend calls these for the
+    reference's f32 tan, cos, sin and atan2, which torch rounds otherwise;
+    the port calls them on the host."""
     fn = getattr(ctypes.CDLL(ctypes.util.find_library("m")), name)
-    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float] * nargs
     return fn
 
 KERNELS = ("palette", "raster_gbuf", "raster_vis", "raster_gbuf_msaa",

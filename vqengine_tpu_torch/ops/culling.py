@@ -8,10 +8,12 @@ log10, so visibility, LOD and area are bitwise the reference's.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .palette import palette_lookup
-from .raster import matvec_fma
+from .raster import div_true, matvec_fma
+from .texture import log_xla
 
 
 def world_aabbs(world: torch.Tensor, centers: torch.Tensor,
@@ -78,6 +80,30 @@ def lod_from_projected_area(area: torch.Tensor, num_lods: torch.Tensor,
     k = (area[..., None] < t).sum(dim=-1).to(torch.int32)
     k = k.clamp(0, max_lods - 1)
     return torch.minimum(k, num_lods - 1)
+
+
+# XLA folds the reference's log10 (log(x) / log(10)) into a product with
+# f32(1 / ln 10)
+_INV_LN10 = float(np.float32(1.0 / np.log(10.0)))
+
+
+def log10_xla(x: torch.Tensor) -> torch.Tensor:
+    """The reference's jnp.log10 on the CPU, bit for bit: XLA's f32 log
+    (texture.log_xla) times f32(1 / ln 10), for x > 0."""
+    return log_xla(x) * _INV_LN10
+
+
+def tessellation_morph_factor(lod: torch.Tensor, area: torch.Tensor,
+                              num_lods: torch.Tensor,
+                              window: float = 0.4) -> torch.Tensor:
+    """Continuous per-item geomorph factor [N] in [0, 1] (1 = full fine
+    detail): with g = -log10(area) - 1 the continuous LOD, level k morphs
+    toward its coarser parent over the last `window` of its range (g in
+    (k - 1, k]), reaching level k + 1 at g = k; the coarsest level never
+    morphs."""
+    g = -log10_xla(torch.clamp(area, min=1e-30)) - 1.0
+    m = torch.clamp(div_true(lod.to(torch.float32) - g, window), 0.0, 1.0)
+    return torch.where(lod >= num_lods - 1, 1.0, m)
 
 
 def cull_and_select_lod(world: torch.Tensor, centers: torch.Tensor,

@@ -11,27 +11,26 @@ the converged limits of the reference's Monte-Carlo loops:
     irradiance(N)  = sum_p env_p * max(0, N . w_p) * dw_p / pi
     prefilter_r(N) = sum_p env_p * k_r(N . w_p) * dw_p / sum_p k_r * dw_p
 
-They run in row chunks (each output row's sum is independent of the
-others), so the transient kernel matrix stays small (CHUNK_ELEMS). The numpy
+They run PRODUCT_BLOCK source texels at a time, in the order XLA's CPU
+backend sums the reference's products (_kernel_products), so the bf16
+tables are the reference's bit for bit. The numpy
 helpers (texel directions, the procedural sky, the Chebyshev least-squares
 fit, the SH9 projection) are the reference's, verbatim.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 
 import numpy as np
 import torch
 
+from . import _backend
 from . import brdf as B
+from .raster import div_true
 from .shadow import _cube_face_uv, _sqrt, norm3
 
 PI = float(np.pi)
-# elements of a load-time product's row chunk: 4 MiB of f32 on the CPU
-# (cache-sized; large chunks are freed and faulted in again per chunk),
-# 32 MiB on a card (a few launches per mip; the transient peak is a few
-# such chunks and an f64 square root of one)
-CHUNK_ELEMS = {"cpu": 1 << 20, "cuda": 1 << 23}
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -45,8 +44,8 @@ def _f32(a, device) -> torch.Tensor:
 def direction_to_equirect_uv(v: torch.Tensor) -> torch.Tensor:
     """[..., 3] -> uv [..., 2] (exact DirectionToEquirectUV); the norm is
     rounded as the reference's jnp.linalg.norm (shadow.norm3)."""
-    u = torch.atan2(v[..., 2], v[..., 0]) / (-2.0 * PI) + 0.5
-    w = torch.asin(-v[..., 1] / torch.clamp(norm3(v), min=1e-9)) / PI + 0.5
+    u = div_true(torch.atan2(v[..., 2], v[..., 0]), -2.0 * PI) + 0.5
+    w = div_true(torch.asin(-v[..., 1] / torch.clamp(norm3(v), min=1e-9)), PI) + 0.5
     return torch.stack([u, w], dim=-1)
 
 
@@ -196,22 +195,123 @@ def downsample_equirect(img: torch.Tensor, target_w: int) -> torch.Tensor:
         return img
     img = img[: th * fy, : target_w * fx]
     blocks = img.reshape(th, fy, target_w, fx, -1)
-    return blocks.sum(dim=(1, 3)) / (fy * fx)
+    # the reference's mean sums each block's texels in order, row by row
+    # (measured for 4 x 4 and 8 x 8 blocks)
+    acc = blocks[:, 0, :, 0] + 0.0
+    for i in range(fy):
+        for j in range(fx):
+            if i or j:
+                acc = acc + blocks[:, i, :, j]
+    return div_true(acc, float(fy * fx))
+
+
+@functools.cache
+def cube_equirect_uv(size: int) -> np.ndarray:
+    """The equirect uv [6, S, S, 2] of the cube texel directions, rounded
+    as the reference's direction_to_equirect_uv on the CPU: XLA's f32 atan2
+    is libm's atan2f and its asin is 2 atan2f(x, 1 + sqrt((1 - x)(1 + x)))
+    (0 of 220,000 values differ), the norm an FMA chain. torch's atan2 and
+    asin differ in the last ulp, which moves a bilinear tap at a texel
+    edge; the directions are static, so this runs once per size on the
+    host."""
+    f32 = np.float32
+    d = cube_texel_directions(size).astype(f32)
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    atan2 = np.frompyfunc(_backend.libm_f32("atan2f", 2), 2, 1)
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(f32)
+    norm = np.sqrt(fma(z, z, fma(y, y, x * x)))
+    s = -y / np.maximum(norm, f32(1e-9))
+    one = f32(1.0)
+    asin = f32(2.0) * atan2(s, one + np.sqrt((one - s) * (one + s))).astype(f32)
+    u = atan2(z, x).astype(f32) / f32(-2.0 * PI) + f32(0.5)
+    w = asin / f32(PI) + f32(0.5)
+    return np.stack([u, w], axis=-1).astype(f32)
 
 
 def equirect_to_cubemap(equirect: torch.Tensor, size: int) -> torch.Tensor:
     """-> [6, S, S, 3] (the reference's equirect->cube draw,
     EnvironmentMapRendering.cpp:197-260)."""
-    dirs = _f32(cube_texel_directions(size), equirect.device)
-    return sample_equirect_bilinear(equirect, direction_to_equirect_uv(dirs))
+    return sample_equirect_bilinear(
+        equirect, _f32(cube_equirect_uv(size), equirect.device))
 
 
-def _chunked_rows(n: int, cols: int, device: torch.device, fn) -> torch.Tensor:
-    """cat([fn(rows) for row slices]) over n output rows of a product with
-    `cols` terms per row, CHUNK_ELEMS[device type] kernel entries at once."""
-    step = max(1, CHUNK_ELEMS.get(device.type, CHUNK_ELEMS["cuda"]) // cols)
-    return torch.cat([fn(slice(i, min(i + step, n)))
-                      for i in range(0, n, step)], dim=0)
+# XLA's CPU backend on the reference's products (measured on random
+# inputs against the op-by-op reference): "a @ b.T" with three terms is an
+# FMA chain; a long dot "w @ src" runs four interleaved FMA chains (term k
+# into chain k mod 4, each from +0) summed (c0 + c1) + (c2 + c3); a row sum
+# is a tree of sequential sums over windows of 32 terms, until at most 32
+# remain, which are summed in order
+XLA_DOT_CHAINS = 4
+XLA_SUM_WINDOW = 32
+# source texels per step of the load-time products
+PRODUCT_BLOCK = 128
+
+
+def _dot3_rows(a64: torch.Tensor, b64: torch.Tensor) -> torch.Tensor:
+    """a [R, 3] x b [P, 3] (f32 values held in f64) -> [R, P] f32 = a @ b.T,
+    an FMA chain from +0 (each product exact in f64, each sum rounded once
+    to f32)."""
+    acc = (a64[:, None, 0] * b64[None, :, 0]).float()
+    for j in (1, 2):
+        acc = torch.addcmul(acc.double(), a64[:, None, j], b64[None, :, j]).float()
+    return acc + 0.0
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """((x0 + x1) + x2) + ... over the first axis."""
+    acc = x[0] + 0.0
+    for j in range(1, x.shape[0]):
+        acc = acc + x[j]
+    return acc
+
+
+def _window_sums(x: torch.Tensor) -> torch.Tensor:
+    """[R, n] -> [R, ceil(n / 32)]: sequential sums of consecutive windows
+    of XLA_SUM_WINDOW terms (the last one padded with zeros)."""
+    pad = (-x.shape[1]) % XLA_SUM_WINDOW
+    if pad:
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad))], dim=1)
+    return _seq_sum(x.reshape(x.shape[0], -1, XLA_SUM_WINDOW).permute(2, 0, 1)
+                    .contiguous())
+
+
+def _kernel_products(dirs_n: torch.Tensor, dirs_p: torch.Tensor,
+                     omega_p: torch.Tensor, src: torch.Tensor, kernel,
+                     row_sums: bool = False):
+    """For each row direction N: sum_p kernel(N . w_p) dw_p env_p over the
+    source texels, and with row_sums also sum_p kernel(N . w_p) dw_p,
+    rounded as XLA rounds the reference's (k @ src) and k.sum(axis=1) on the
+    CPU (XLA_DOT_CHAINS, XLA_SUM_WINDOW), PRODUCT_BLOCK source texels at a
+    time. dirs_n [R, 3], dirs_p [P, 3], omega_p [P], src [P, 3], P a
+    multiple of 4 -> ([R, 3], [R] or None)."""
+    r, p = dirs_n.shape[0], dirs_p.shape[0]
+    if p % XLA_DOT_CHAINS:
+        raise ValueError(f"{p} source texels: the dot's order is measured for "
+                         f"multiples of {XLA_DOT_CHAINS}")
+    acc = torch.zeros((r, XLA_DOT_CHAINS, src.shape[1]), dtype=torch.float32,
+                      device=dirs_n.device)
+    parts = []
+    n64, p64 = dirs_n.double(), dirs_p.double()
+    for c0 in range(0, p, PRODUCT_BLOCK):
+        cols = slice(c0, min(c0 + PRODUCT_BLOCK, p))
+        w = kernel(_dot3_rows(n64, p64[cols])) * omega_p[None, cols]
+        wd = w.double().reshape(r, -1, XLA_DOT_CHAINS)
+        sd = src[cols].double().reshape(-1, XLA_DOT_CHAINS, src.shape[1])
+        for j in range(wd.shape[1]):
+            # one fused multiply-add per chain: the f32 product is exact in
+            # f64, the sum rounds once to f32 (bar double-rounding ties)
+            acc = torch.addcmul(acc.double(), wd[:, j, :, None], sd[None, j]).float()
+        if row_sums:
+            parts.append(_window_sums(w) if p > XLA_SUM_WINDOW else w)
+    prod = (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])
+    if not row_sums:
+        return prod, None
+    sums = torch.cat(parts, dim=1)
+    while sums.shape[1] > XLA_SUM_WINDOW:
+        sums = _window_sums(sums)
+    return prod, _seq_sum(sums.T.contiguous())
 
 
 def diffuse_irradiance_cube(equirect: torch.Tensor, size: int = 64,
@@ -224,14 +324,10 @@ def diffuse_irradiance_cube(equirect: torch.Tensor, size: int = 64,
     sh, sw = src.shape[0], src.shape[1]
     dirs_p, omega_p = equirect_texel_directions(sw, sh)
     dirs_n = _f32(cube_texel_directions(size).reshape(-1, 3), dev)
-    dp_t, op = _f32(dirs_p, dev).T, _f32(omega_p, dev)
-    src_flat = src.reshape(-1, 3)
-
-    def rows(sl):
-        cosm = torch.clamp(dirs_n[sl] @ dp_t, min=0.0)
-        return ((cosm * op[None, :]) @ src_flat) / PI
-    return _chunked_rows(dirs_n.shape[0], op.shape[0], dev,
-                         rows).reshape(6, size, size, 3)
+    out, _ = _kernel_products(dirs_n, _f32(dirs_p, dev), _f32(omega_p, dev),
+                              src.reshape(-1, 3),
+                              lambda c: torch.clamp(c, min=0.0))
+    return div_true(out, PI).reshape(6, size, size, 3)
 
 
 def _ggx_prefilter_kernel(cos_gamma: torch.Tensor, roughness: float) -> torch.Tensor:
@@ -255,19 +351,17 @@ def specular_prefilter_mips(equirect: torch.Tensor, base_size: int = 128,
     src = downsample_equirect(equirect, source_width)
     sh, sw = src.shape[0], src.shape[1]
     dirs_p, omega_p = equirect_texel_directions(sw, sh)
-    dp_t, op = _f32(dirs_p, dev).T, _f32(omega_p, dev)
+    dp, op = _f32(dirs_p, dev), _f32(omega_p, dev)
     src_flat = src.reshape(-1, 3)
     for m in range(1, num_mips):
         size = max(base_size >> m, 4)
         roughness = m / (num_mips - 1)
         dirs_n = _f32(cube_texel_directions(size).reshape(-1, 3), dev)
-
-        def rows(sl, dirs_n=dirs_n, roughness=roughness):
-            k = _ggx_prefilter_kernel(dirs_n[sl] @ dp_t, roughness) * op[None, :]
-            norm = torch.clamp(k.sum(dim=1, keepdim=True), min=1e-9)
-            return (k @ src_flat) / norm
-        mips.append(_chunked_rows(dirs_n.shape[0], op.shape[0], dev,
-                                  rows).reshape(6, size, size, 3))
+        prod, norm = _kernel_products(
+            dirs_n, dp, op, src_flat,
+            lambda c, r=roughness: _ggx_prefilter_kernel(c, r), row_sums=True)
+        mips.append((prod / torch.clamp(norm, min=1e-9)[:, None])
+                    .reshape(6, size, size, 3))
     return mips
 
 

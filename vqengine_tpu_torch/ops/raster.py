@@ -129,11 +129,12 @@ def msaa_threshold(a: torch.Tensor, b: torch.Tensor, s: int,
 def matvec_fma(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """[..., I, J] x [..., J] -> [..., I], rounded as XLA's CPU backend
     rounds the reference's batched einsum "cij,cj->ci": a chain of fused
-    multiply-adds over j (_fma)."""
+    multiply-adds over j (_fma). XLA's accumulator starts at +0, so a sum
+    of -0 products is +0 (the closing + 0.0; nothing else changes)."""
     acc = m[..., 0] * v[..., None, 0]
     for j in range(1, m.shape[-1]):
         acc = _fma(m[..., j], v[..., None, j], acc)
-    return acc
+    return acc + 0.0
 
 
 def world_view_proj(vp: torch.Tensor, world: torch.Tensor) -> torch.Tensor:
@@ -160,6 +161,29 @@ def transform_clip_corners(corner_positions: torch.Tensor,
     m = palette_lookup(item3, mvps.reshape(n, 16).contiguous()).reshape(-1, 4, 4)
     p = torch.cat([corner_positions,
                    torch.ones_like(corner_positions[:, :1])], dim=1)
+    return matvec_fma(m, p).reshape(t, 3, 4)
+
+
+def transform_clip_corners_morph(corner_positions: torch.Tensor,
+                                 corner_morph_mid: torch.Tensor,
+                                 tri_item: torch.Tensor,
+                                 mvps: torch.Tensor,
+                                 morph_w: torch.Tensor) -> torch.Tensor:
+    """transform_clip_corners with the geomorph: each corner lerps toward
+    its morph target by its item's factor morph_w [N] in [0, 1] (1 = full
+    detail) before the clip transform. The factor rides the matrix's
+    palette row: one K3 lookup of [3T, 17] rows. Meshes without morph data
+    carry mid == position, so the lerp leaves them as they are."""
+    t = tri_item.shape[0]
+    n = mvps.shape[0]
+    item3 = tri_item.repeat_interleave(3)
+    table = torch.cat([mvps.reshape(n, 16),
+                       morph_w.to(torch.float32)[:, None]], dim=1)
+    rows = palette_lookup(item3, table)                       # [3T, 17]
+    m = rows[:, :16].reshape(-1, 4, 4)
+    w = rows[:, 16:17]
+    pos = corner_morph_mid + w * (corner_positions - corner_morph_mid)
+    p = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
     return matvec_fma(m, p).reshape(t, 3, 4)
 
 

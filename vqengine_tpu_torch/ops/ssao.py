@@ -15,7 +15,8 @@ selection (the tap's pyramid level and texel) lands where the reference's
 does: the view-space normal is an FMA chain (XLA's "ij,hwj->hwi" with three
 terms), norms and square roots as shadow.norm3 and shadow._sqrt, the tap's
 level from f32 distance thresholds (MIP_DIST_THRESHOLD_BITS) instead of a
-log2 that rounds otherwise than XLA's, tan through libm's tanf (tan_half).
+log2 that rounds otherwise than XLA's, tan through libm's tanf (tan_half),
+the blur's and the upsample's exp as XLA's (texture.exp_xla).
 A division by a Python number divides by a device scalar (raster.div_true):
 on a card PyTorch turns x / c into x * (1 / c), which rounds otherwise.
 """
@@ -31,6 +32,7 @@ from .raster import _fma
 from .raster import div_true as _div
 from .raster import scalar_on as _scalar
 from .shadow import _sqrt
+from .texture import exp_xla
 
 # CACAO's quality ladder (the reference's PRESETS, ssao.py:124): base spiral
 # taps, adaptive refinement taps, deinterleaved generation
@@ -322,11 +324,14 @@ def _bilateral_blur(ao: torch.Tensor, zv: torch.Tensor, radius: int = 2,
         wacc = torch.zeros_like(a)
         n = a.shape[axis]
         denom = depth_sigma * torch.clamp(z, min=1e-3)
-        for o in range(-radius, radius + 1):
-            idx = (torch.arange(n, device=a.device) + o).clamp(0, n - 1)
-            a_o = a.index_select(axis, idx)
-            z_o = z.index_select(axis, idx)
-            wz = torch.exp(-torch.abs(z_o - z) / denom)
+        offs = range(-radius, radius + 1)
+        idx = [(torch.arange(n, device=a.device) + o).clamp(0, n - 1) for o in offs]
+        # every tap's depth weight in one exp_xla call (elementwise: the
+        # same values, a fifth of the launches)
+        wzs = exp_xla(torch.stack([-torch.abs(z.index_select(axis, i) - z) / denom
+                                   for i in idx]))
+        for o, i, wz in zip(offs, idx, wzs):
+            a_o = a.index_select(axis, i)
             wg = float(np.exp(-0.5 * (o / max(radius, 1)) ** 2))
             acc = acc + a_o * wz * wg
             wacc = wacc + wz * wg
@@ -359,22 +364,29 @@ def upsample_bilateral(ao: torch.Tensor, z_coarse: torch.Tensor,
     dev = ao.device
     zf = z_fine[torch.arange(2 * h, device=dev).clamp(max=fh - 1)]
     zf = zf[:, torch.arange(2 * w, device=dev).clamp(max=fw - 1)]
+    # the 16 (phase, tap) depth weights in one exp_xla call (elementwise:
+    # the same values, a sixteenth of the launches)
+    taps, args = [], []
+    for oy in range(2):
+        for ox in range(2):
+            zf_p = zf[oy::2, ox::2]
+            denom = depth_sigma * torch.clamp(torch.abs(zf_p), min=1e-3)
+            for (dy, wy) in ((0, 0.75), (oy * 2 - 1, 0.25)):
+                for (dx, wx) in ((0, 0.75), (ox * 2 - 1, 0.25)):
+                    taps.append((dy, dx, wy * wx))
+                    args.append(-torch.abs(_shift(z_coarse, dy, dx) - zf_p) / denom)
+    wzs = exp_xla(torch.stack(args))
     rows = []
     for oy in range(2):
         cols = []
         for ox in range(2):
-            zf_p = zf[oy::2, ox::2]
-            denom = depth_sigma * torch.clamp(torch.abs(zf_p), min=1e-3)
             acc = torch.zeros((h, w), dtype=torch.float32, device=dev)
             wacc = torch.zeros((h, w), dtype=torch.float32, device=dev)
-            for (dy, wy) in ((0, 0.75), (oy * 2 - 1, 0.25)):
-                for (dx, wx) in ((0, 0.75), (ox * 2 - 1, 0.25)):
-                    a_s = _shift(ao, dy, dx)
-                    z_s = _shift(z_coarse, dy, dx)
-                    wz = torch.exp(-torch.abs(z_s - zf_p) / denom)
-                    wgt = wy * wx * (wz + 1e-4)
-                    acc = acc + a_s * wgt
-                    wacc = wacc + wgt
+            for k in range(4 * (2 * oy + ox), 4 * (2 * oy + ox) + 4):
+                dy, dx, wyx = taps[k]
+                wgt = wyx * (wzs[k] + 1e-4)
+                acc = acc + _shift(ao, dy, dx) * wgt
+                wacc = wacc + wgt
             cols.append(acc / torch.clamp(wacc, min=1e-6))
         rows.append(torch.stack(cols, dim=-1))
     out = torch.stack(rows, dim=1)                       # [h, oy, w, ox]

@@ -212,6 +212,36 @@ def log2_xla(x: torch.Tensor) -> torch.Tensor:
     return log_xla(x) * _INV_LN2
 
 
+# XLA's vectorized f32 exp (the Cephes polynomial): its clamp, log2(e),
+# the two-part ln 2 and the coefficients, as f32 values
+_EXP_LO, _EXP_HI = float(np.float32(-87.8)), float(np.float32(88.8))
+_LOG2E = float(np.float32(1.44269504088896341))
+_EXP_C1, _EXP_C2 = 0.693359375, float(np.float32(-2.12194440e-4))
+_EXP_P = tuple(float(np.float32(p)) for p in (
+    1.9875691500E-4, 1.3981999507E-3, 8.3334519073E-3, 4.1665795894E-2,
+    1.6666665459E-1, 5.0000001201E-1))
+
+
+def exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """f32 exp, bit for bit as XLA's CPU backend computes the reference's
+    jnp.exp: x clamped to [-87.8, 88.8], n = floor(x log2(e) + 1/2) clamped
+    to [-127, 127], the Cephes polynomial in x - n ln 2 with every
+    multiply-add fused, times 2^n built from its bits (0 for n = -127), and
+    a result below the smallest normal flushed to 0 (XLA's CPU threads
+    flush denormals). 0 of 2,500,000 inputs over [-100, 100] differ, torch's
+    exp on 23.5% of them (tools/rounding_probes_torch.py)."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(_fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    x = _fma(n, -_EXP_C1, x)
+    x = _fma(n, -_EXP_C2, x)
+    y = _fma(x, _EXP_P[0], _EXP_P[1])
+    for p in _EXP_P[2:]:
+        y = _fma(y, x, p)
+    y = 1.0 + _fma(y, x * x, x)
+    r = y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(r < _MIN_NORM, 0.0, r)
+
+
 def _floor_index(x: torch.Tensor, hi: int) -> torch.Tensor:
     """clip(int(floor(x)), 0, hi) as the reference's floor, int32 cast
     (NaN to 0, saturating) and clip -> int64."""

@@ -22,6 +22,7 @@ import torch
 
 from ..ops import colorspace as cs
 from ..ops import culling, ffx, ibl, palette, raster, shading, shadow, sparse
+from ..ops import tessellation as tess
 from ..ops import msaa as msaa_ops
 from ..ops import ssao as ssao_ops
 from ..ops import ssr as ssr_ops
@@ -141,7 +142,10 @@ class DeviceScene:
     """Device-resident scene geometry (see the reference's DeviceScene).
     Triangle-indexed buffers are padded to a power-of-two bucket; the
     corner tables hold positions[indices] etc. for the live triangles,
-    rounded up to the raster group size (num_tris_live)."""
+    rounded up to the raster group size (num_tris_live). Tessellated
+    items carry their control patches and templates (the patch items'
+    factor-1 base triangles sit at rows >= num_tris_live of the
+    triangle-indexed buffers, which only the shadow maps render)."""
     positions: torch.Tensor        # [Vp, 3]
     normals: torch.Tensor
     tangents: torch.Tensor
@@ -160,27 +164,56 @@ class DeviceScene:
     corner_normals: torch.Tensor
     corner_tangents: torch.Tensor
     corner_uvs: torch.Tensor        # [3Tl, 2]
-    corner_morph_mid: torch.Tensor | None = None  # geomorph targets
+    corner_morph_mid: torch.Tensor | None = None  # [3Tl, 3] geomorph targets
     num_tris_live: int = 0
+    # quad patches (ops/tessellation.amplify): control data and the
+    # static max-level template
+    patch_corners: torch.Tensor | None = None     # [P, 4, 3]
+    patch_normals: torch.Tensor | None = None     # [P, 4, 3]
+    patch_uvs: torch.Tensor | None = None         # [P, 4, 2]
+    patch_item: torch.Tensor | None = None        # [P] int32
+    patch_heightmap: torch.Tensor | None = None   # [S, S]
+    patch_params: torch.Tensor | None = None      # [Vt, 2] template grid
+    patch_tri_idx: torch.Tensor | None = None     # [Tt, 3] template triangles
+    patch_disp_scale: float = 0.0
+    patch_tess_scale: float = 100.0
+    # tri patches of items whose material enables tessellation
+    # (ops/tessellation.amplify_tri)
+    tpatch_corners: torch.Tensor | None = None    # [P, 3, 3]
+    tpatch_normals: torch.Tensor | None = None    # [P, 3, 3]
+    tpatch_uvs: torch.Tensor | None = None        # [P, 3, 2]
+    tpatch_item: torch.Tensor | None = None       # [P] int32
+    tpatch_heightmap: torch.Tensor | None = None  # [S, S]
+    tpatch_bary: torch.Tensor | None = None       # [Vt, 3] template barycentrics
+    tpatch_tri_idx: torch.Tensor | None = None    # [Tt, 3] template triangles
+    tpatch_disp_scale: float = 0.0
+    tpatch_tess_scale: float = 100.0
 
 
-_SCENE_TENSORS = [f.name for f in dataclasses.fields(DeviceScene)
-                  if f.name not in ("corner_morph_mid", "num_tris_live")]
-_TESSELLATION = ("patch_corners", "tpatch_corners")
+# the leaves every scene has; the rest are None or static numbers
+_SCENE_TENSORS = ("positions", "normals", "tangents", "uvs", "item_of_vertex",
+                  "indices", "tri_item", "tri_lod", "materials",
+                  "item_material", "item_object", "item_num_lods",
+                  "aabb_center", "aabb_extent", "corner_positions",
+                  "corner_normals", "corner_tangents", "corner_uvs")
+_SCENE_STATIC = ("patch_disp_scale", "patch_tess_scale", "tpatch_disp_scale",
+                 "tpatch_tess_scale")
+_SCENE_OPTIONAL = tuple(f.name for f in dataclasses.fields(DeviceScene)
+                        if f.name not in _SCENE_TENSORS + _SCENE_STATIC
+                        + ("num_tris_live",))
 
 
 def device_scene_from_numpy(fields: dict, num_tris_live: int,
                             device: torch.device) -> DeviceScene:
     """DeviceScene from numpy leaves named as the reference's DeviceScene
-    fields (extra keys are ignored; patch tables raise)."""
-    for name in _TESSELLATION:
-        if fields.get(name) is not None:
-            raise NotImplementedError("tessellation patches are not ported yet")
+    fields (extra keys are ignored; a missing optional leaf is None)."""
     kw = {name: _tensor(fields[name], device) for name in _SCENE_TENSORS}
-    morph = fields.get("corner_morph_mid")
-    return DeviceScene(**kw, num_tris_live=int(num_tris_live),
-                       corner_morph_mid=(None if morph is None
-                                         else _tensor(morph, device)))
+    kw.update({name: (None if fields.get(name) is None
+                      else _tensor(fields[name], device))
+               for name in _SCENE_OPTIONAL})
+    kw.update({name: float(fields[name]) for name in _SCENE_STATIC
+               if name in fields})
+    return DeviceScene(**kw, num_tris_live=int(num_tris_live))
 
 
 def _bucket(n: int, minimum: int = 256) -> int:
@@ -194,9 +227,6 @@ def _bucket(n: int, minimum: int = 256) -> int:
 def scene_fields_numpy(buffers, bucketize: bool = True) -> tuple[dict, int]:
     """SceneBuffers -> (numpy leaves of a DeviceScene, num_tris_live),
     padded exactly as the reference's upload_scene pads them."""
-    for name in _TESSELLATION:
-        if getattr(buffers, name, None) is not None:
-            raise NotImplementedError("tessellation patches are not ported yet")
     v = buffers.positions.shape[0]
     t = buffers.indices.shape[0]
     t_main = t if buffers.num_tris_main is None else buffers.num_tris_main
@@ -240,6 +270,28 @@ def scene_fields_numpy(buffers, bucketize: bool = True) -> tuple[dict, int]:
         corner_morph_mid=(padv(morph, max(v, 1))[idx_l]
                           if morph is not None else None),
     )
+    if getattr(buffers, "patch_corners", None) is not None:
+        params, tri_idx = tess.build_patch_template()
+        fields.update(
+            patch_corners=buffers.patch_corners,
+            patch_normals=buffers.patch_normals,
+            patch_uvs=buffers.patch_uvs,
+            patch_item=buffers.patch_item,
+            patch_heightmap=buffers.patch_heightmap,
+            patch_params=params, patch_tri_idx=tri_idx,
+            patch_disp_scale=float(buffers.patch_disp_scale),
+            patch_tess_scale=float(buffers.patch_tess_scale))
+    if getattr(buffers, "tpatch_corners", None) is not None:
+        bary, tri_idx_t = tess.build_tri_template()
+        fields.update(
+            tpatch_corners=buffers.tpatch_corners,
+            tpatch_normals=buffers.tpatch_normals,
+            tpatch_uvs=buffers.tpatch_uvs,
+            tpatch_item=buffers.tpatch_item,
+            tpatch_heightmap=buffers.tpatch_heightmap,
+            tpatch_bary=bary, tpatch_tri_idx=tri_idx_t,
+            tpatch_disp_scale=float(buffers.tpatch_disp_scale),
+            tpatch_tess_scale=float(buffers.tpatch_tess_scale))
     return fields, tl
 
 
@@ -334,12 +386,49 @@ def unit3(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(shadow.norm3(v), min=1e-9)[..., None]
 
 
+def append_amplified_patches(scene: DeviceScene, consts: FrameConstants,
+                             visible, wvp, clip_c, corner_n, corner_t,
+                             corner_u, tri_item, tri_mask_c):
+    """Amplify the scene's quad patches (Terrain) and tri patches
+    (material-driven) through their static templates (ops/tessellation.py)
+    and append the frame's corner tables to the static ones; a patch
+    triangle lives where its patch survives the cull, it is not
+    collapsed, and its item is visible."""
+    produced = []
+    if scene.patch_corners is not None:
+        produced.append(tess.amplify(
+            scene.patch_corners, scene.patch_normals, scene.patch_uvs,
+            scene.patch_item, consts.world, consts.camera_pos,
+            consts.frustum_planes, scene.patch_params,
+            scene.patch_tri_idx, scene.patch_tess_scale,
+            heightmap=scene.patch_heightmap,
+            disp_scale=scene.patch_disp_scale))
+    if scene.tpatch_corners is not None:
+        produced.append(tess.amplify_tri(
+            scene.tpatch_corners, scene.tpatch_normals, scene.tpatch_uvs,
+            scene.tpatch_item, consts.world, consts.camera_pos,
+            consts.frustum_planes, scene.tpatch_bary,
+            scene.tpatch_tri_idx, scene.tpatch_tess_scale,
+            heightmap=scene.tpatch_heightmap,
+            disp_scale=scene.tpatch_disp_scale))
+    for cp, cn, ct, cu, ti_p, live_p in produced:
+        live_p = live_p & visible[ti_p.long()]
+        clip_p = raster.transform_clip_corners(cp, ti_p, wvp)
+        clip_c = torch.cat([clip_c, clip_p])
+        corner_n = torch.cat([corner_n, cn])
+        corner_t = torch.cat([corner_t, ct])
+        corner_u = torch.cat([corner_u, cu])
+        tri_item = torch.cat([tri_item, ti_p])
+        tri_mask_c = torch.cat([tri_mask_c, live_p])
+    return clip_c, corner_n, corner_t, corner_u, tri_item, tri_mask_c
+
+
 def geometry_setup_gbuf(scene: DeviceScene, consts: FrameConstants,
                         width: int, height: int):
-    """Raster front end: cull + LOD + corner transform + triangle setup +
-    packed G-buffer attributes -> (TriangleSetup, extra record columns)."""
-    if scene.corner_morph_mid is not None:
-        raise NotImplementedError("geomorph tessellation is not ported yet")
+    """Raster front end: cull + LOD + corner transform (with the geomorph
+    where the scene has morph targets) + patch amplification + triangle
+    setup + packed G-buffer attributes -> (TriangleSetup, extra record
+    columns)."""
     visible, lod = culling.cull_and_select_lod(
         consts.world, scene.aabb_center, scene.aabb_extent,
         consts.frustum_planes, consts.view_proj, scene.item_num_lods)
@@ -348,13 +437,27 @@ def geometry_setup_gbuf(scene: DeviceScene, consts: FrameConstants,
     wvp = raster.world_view_proj(consts.view_proj, consts.world)
     tl = scene.num_tris_live
     tri_item = scene.tri_item[:tl]
-    clip_c = raster.transform_clip_corners(scene.corner_positions, tri_item, wvp)
-    setup = raster.setup_triangles(clip_c, width, height,
-                                   tri_mask=tri_mask[:tl])
+    if scene.corner_morph_mid is not None:
+        # the per-item factor from the same projected area the LOD uses
+        wc, we = culling.world_aabbs(consts.world, scene.aabb_center,
+                                     scene.aabb_extent)
+        area = culling.projected_bb_area(wc, we, consts.view_proj)
+        morph_w = culling.tessellation_morph_factor(lod, area,
+                                                    scene.item_num_lods)
+        clip_c = raster.transform_clip_corners_morph(
+            scene.corner_positions, scene.corner_morph_mid, tri_item, wvp,
+            morph_w)
+    else:
+        clip_c = raster.transform_clip_corners(scene.corner_positions,
+                                               tri_item, wvp)
+    clip_c, corner_n, corner_t, corner_u, tri_item, tri_mask_c = \
+        append_amplified_patches(scene, consts, visible, wvp, clip_c,
+                                 scene.corner_normals, scene.corner_tangents,
+                                 scene.corner_uvs, tri_item, tri_mask[:tl])
+    setup = raster.setup_triangles(clip_c, width, height, tri_mask=tri_mask_c)
     ti = tri_item.long()
     extra = raster.pack_gbuf_extra_corners(
-        scene.corner_normals, scene.corner_tangents, scene.corner_uvs,
-        tri_item, consts.normal_mats,
+        corner_n, corner_t, corner_u, tri_item, consts.normal_mats,
         scene.item_material[ti], scene.item_object[ti])
     return setup, extra
 

@@ -153,13 +153,30 @@ the final line:
      triangles, peak memory, and the tick's constants step alone on the
      host clock (outside the window); (j) also times its sweep with the
      constants built before the window, as (g) is timed.
+  9c. the post tail card vs CPU (`[post]` lines after 8b's): CAS, FSR1
+     (96x54 -> 192x108, EASU's taps and direction mask recorded on both
+     sides), the ST.2084 tonemap in both color spaces, every draw mode,
+     the magnifier (its taps recorded) and the outline (its rim) on a
+     Default frame, each within POST_TOL; then FSR1 from 1440x810 to
+     1920x1080 and CAS at 1920x1080 timed (stage rows); the goldens (8)
+     include default_hdr10.
+  9d. main path (k), the engine shell: `python -m vqengine_tpu_torch -Test
+     -TestFrames=16` in-process (__main__.main) on Sponza at 1920x1080
+     with the engine's defaults (HDR on: the HDR10 dump), then the
+     Default level with RenderScale 0.75 (FSR1 on every tick) and a
+     960x540 render context (engine.run); before each run an engine set up
+     the same way holds every launch of its first tick against the plain
+     version and its second tick against FrameLoop's frame. Exit code 0,
+     the files written, the engine's logged ms/frame, launches and peak
+     memory (`[engine] (k)`, `[main] (k)` lines).
 `--profile` adds stage rows (among them the environment term, the
 skydome, the environment build, SSAO, motion vectors, the SSR trace,
 denoise and composite, and the stress frame's material pass with and
 without textures, each amplifier alone, (i)'s maps in the frame and
 whole ticks of (i) and (j)) and traces the default frame of path (e) (no
 SSAO, SSR or motion), the full default frame of (g), the stress frame of
-(h) and ticks of (i) and (j) (device ops and idle share of each).
+(h), ticks of (i) and (j) and (k)'s engine ticks on Sponza (device ops
+and idle share of each).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1206,6 +1223,98 @@ def phase_post_card_vs_cpu(dev, env_cpu) -> None:
             prev = sides[1][0].build_frame_constants(
                 s.buffers, cam, s.lights).view_proj.numpy()
     cam.yaw = base_yaw
+
+
+POST_TOL = 1e-6   # card vs CPU, the post tail on the same inputs
+
+
+def phase_post_tail_card_vs_cpu(dev) -> None:
+    """The post tail card vs CPU (`[post]` lines) on the same inputs: a
+    Default frame rendered on the CPU at 192x108 (SSAO, motion against a
+    turned camera, 64^2 ESM maps) and at 96x54. CAS on its ldr, FSR1 from
+    the 96x54 ldr to 192x108 (EASU's integer taps and direction mask
+    recorded on both sides), the ST.2084 tonemap of its hdr (Rec709 at
+    1000 nits, Rec2020 at 200), every draw mode (the engine's depth, AO,
+    motion and object ids; stand-ins from the frame for the channels the
+    engine does not pass), the magnifier at the center and off a corner
+    (its source texels recorded) and the outline of the object at the
+    center (its rim recorded): each within POST_TOL of the CPU, every
+    recorded selection equal. Then FSR1 from 1440x810 to 1920x1080 and CAS
+    at 1920x1080 on the card, timed (stage rows)."""
+    import numpy as np
+    from vqengine_tpu_torch.engine.scene_load import load_scene
+    from vqengine_tpu_torch.ops import colorspace as cs
+    from vqengine_tpu_torch.ops import ffx, postprocess as pp
+    from vqengine_tpu_torch.ops import visualization as viz
+    from vqengine_tpu_torch.render.renderer import VQRendererTorch
+    cpu = torch.device("cpu")
+    frames = {}
+    for w, h in ((SMALL_W, SMALL_H), (SMALL_W // 2, SMALL_H // 2)):
+        s = load_scene("Default", w, h)
+        r = VQRendererTorch(cpu)
+        r.load_scene(s.buffers)
+        cam = s.cameras[0]
+        cam.yaw -= 3.0
+        prev = cam.view_projection()
+        cam.yaw += 3.0
+        c = r.build_frame_constants(s.buffers, cam, s.lights,
+                                    prev_view_proj=np.asarray(prev))
+        frames[w] = r.render(c, w, h, shadow_dims=SMALL_DIMS, enable_ssao=True,
+                             enable_motion_vectors=True)
+    f = frames[SMALL_W]
+    ldr, hdr = f["ldr"], f["hdr"]
+    oid = f["object_id"]
+    gbuf = dict(depth=f["depth"], ao=f["ao"], motion=f["motion"], object_id=oid,
+                normals=ldr * 2.0 - 1.0, roughness=ldr[..., 0],
+                metalness=ldr[..., 1], albedo=ldr)
+    selected = int(oid[SMALL_H // 2, SMALL_W // 2])
+    checks = {
+        "CAS 0.5": lambda d, rec: ffx.cas(ldr.to(d), 0.5),
+        f"FSR1 {SMALL_W // 2}x{SMALL_H // 2} -> {SMALL_W}x{SMALL_H}":
+            lambda d, rec: ffx.fsr1(frames[SMALL_W // 2]["ldr"].to(d), SMALL_H,
+                                    SMALL_W, record=rec),
+        "ST.2084, Rec709 content, 1000 nits":
+            lambda d, rec: pp.tonemap(hdr.to(d), cs.DISPLAY_CURVE_ST2084,
+                                      display_reference_brightness=1000.0),
+        "ST.2084, Rec2020 content, 200 nits":
+            lambda d, rec: pp.tonemap(hdr.to(d), cs.DISPLAY_CURVE_ST2084,
+                                      cs.COLOR_SPACE_REC2020, 200.0),
+        "magnifier": lambda d, rec: viz.magnifier(ldr.to(d), record=rec),
+        "magnifier off a corner":
+            lambda d, rec: viz.magnifier(ldr.to(d), (0.08, 0.85), 0.4, 2.5,
+                                         border_px=3, record=rec),
+        f"outline of object {selected}":
+            lambda d, rec: viz.outline(ldr.to(d), oid.to(d), selected, record=rec),
+    }
+    for mode in range(9):
+        checks[f"draw mode {mode}"] = (
+            lambda d, rec, m=mode: viz.visualize(
+                m, ldr.to(d), **{k: v.to(d) for k, v in gbuf.items()}))
+    for label, fn in checks.items():
+        outs, recs = [], []
+        for d in (dev, cpu):
+            rec = {}
+            outs.append(fn(d, rec).cpu())
+            recs.append({k: v.cpu() for k, v in rec.items()})
+        diff = float((outs[0] - outs[1]).abs().max())
+        same = int((outs[0] != outs[1]).sum())
+        sel = {k: int((recs[0][k] != recs[1][k]).sum()) for k in recs[0]
+               if recs[0][k].dtype in (torch.bool, torch.int32, torch.int64)}
+        say(f"[post] {label}, card vs CPU: max |diff| {diff} ({same} of "
+            f"{outs[0].numel()} values differ; bar {POST_TOL}); mismatched "
+            f"selections {sel}")
+        if not diff <= POST_TOL or any(sel.values()):
+            fail(f"[post] {label}: card vs CPU {diff}, selections {sel}")
+    # 1080p on the card: FSR1 from RenderScale 0.75, CAS at the display size
+    src = torch.nn.functional.interpolate(
+        ldr.to(dev).permute(2, 0, 1)[None], size=(810, 1440), mode="bilinear",
+        align_corners=False)[0].permute(1, 2, 0).contiguous()
+    full = ffx.fsr1(src, H, W)
+    tag = "[profile] stage" if "--profile" in sys.argv[1:] else "[post] stage"
+    for name, fn in (("FSR1 (EASU + RCAS) 1440x810 -> 1920x1080",
+                      lambda: ffx.fsr1(src, H, W)),
+                     ("CAS 1920x1080", lambda: ffx.cas(full, 0.5))):
+        say(f"{tag} {time_ms(fn, 10):8.3f} ms  {name}")
 
 
 @contextlib.contextmanager
@@ -2646,6 +2755,152 @@ def phase_profile_tess(stresstest, terrain) -> None:
     trace_frames("terrain frames", "terrain_trace.json", "(j) Terrain ticks", lj.tick)
 
 
+def phase_profile_engine(dev) -> None:
+    """(k)'s tick on Sponza with the engine's defaults: the stage row of 10
+    ticks in a row (CUDA events around the ten, no sync between ticks, as
+    the engine runs them) beside (g)'s synced frame, and a trace of
+    PROFILE_FRAMES ticks (traces/engine_trace.json)."""
+    from vqengine_tpu_torch.engine.engine import VQEngineTorch
+    e = VQEngineTorch([f"-W={W}", f"-H={H}", "-Scene=Sponza"], device=dev)
+    e.start_loading_scene("Sponza")
+    e.tick()
+    say(f"[profile] stage {time_ms(e.tick, 10):8.3f} ms  (k) engine tick on "
+        f"Sponza, the engine's defaults (events, input, constants, the frame "
+        f"without readback; 10 ticks unsynced)")
+    trace_frames("engine ticks", "engine_trace.json", "(k) Sponza engine ticks",
+                 e.tick)
+
+
+@contextlib.contextmanager
+def engine_log(lines: list):
+    """While the context lasts, every message the engine logs through
+    utils.log.info is kept in lines (and still logged)."""
+    from vqengine_tpu_torch.utils import log
+    info = log.info
+
+    def keep(msg: str, *args) -> None:
+        lines.append(msg)
+        info(msg, *args)
+    log.info = keep
+    try:
+        yield lines
+    finally:
+        log.info = info
+
+
+def engine_run(dev, card: str, label: str, scene: str, setup=None,
+               context: tuple | None = None) -> dict:
+    """One engine run of path (k): -Test -TestFrames=N_FRAMES at W x H on
+    `scene`, the engine's defaults (HDR on: the HDR10 dump runs) with
+    setup(engine) applied. First an engine set up the same way ticks twice:
+    every K1, K2 and K3 launch of its first tick held against the plain
+    version (checked_launches), and its second frame against a FrameLoop's
+    on the same renderer (ldr within ENTRY_TOL). Then, with the launch
+    counts at 0, the run itself: __main__.main in-process when there is no
+    setup, else VQEngineTorch.run of a fresh engine so set up. Checks the
+    exit code (0), the files the run writes (loading.png, the frame, the
+    HDR10 encode and the render context's frame), and reads the engine's
+    logged ms/frame; prints the launches per frame and the peak device
+    memory. -> launches."""
+    import re
+
+    from vqengine_tpu_torch.__main__ import main
+    from vqengine_tpu_torch.engine.engine import VQEngineTorch
+    from vqengine_tpu_torch.engine.frame_loop import FrameLoop
+    from vqengine_tpu_torch.engine.scene_load import LoadedScene
+    from vqengine_tpu_torch.engine.settings import render_flags
+    from vqengine_tpu_torch.ops import _backend
+    out_dir = ROOT / "out" / "engine" / scene
+    argv = ["-Test", f"-TestFrames={N_FRAMES}", f"-W={W}", f"-H={H}",
+            f"-Scene={scene}", f"-OutputDir={out_dir}"]
+    e = VQEngineTorch(argv, device=dev)
+    if setup is not None:
+        setup(e)
+    if not e.start_loading_scene(scene):
+        fail(f"(k) {label}: the scene did not load")
+    with checked_launches({}) as found:
+        e.tick()
+    want = {"raster_gbuf_msaa": 1}
+    if context is not None:
+        want["raster_gbuf"] = 1
+    report_checked("first tick", found, want, tag=f"[engine] (k) {label}")
+    second = e.tick()
+    loop = FrameLoop(e.renderer, LoadedScene(
+        name=scene, buffers=e.scene_buffers, cameras=e.cameras, lights=e.lights,
+        wants_environment=e.environment is not None, textures=None,
+        has_shadow_casters=any(l.enabled and l.casts_shadows for l in e.lights),
+        update_hook=e.scene_update_hook), W, H,
+        dict(render_flags(e.gfx), env=e.environment, textures=e.texture_arrays))
+    loop.tick()
+    ref = loop.tick()
+    diff = float((second.ldr - ref["ldr"]).abs().max())
+    say(f"[engine] (k) {label}: the engine's second tick against FrameLoop's "
+        f"second frame on the same renderer: max |ldr diff| {diff} (bar "
+        f"{ENTRY_TOL}), ldr {tuple(second.ldr.shape)}, hdr "
+        f"{tuple(second.hdr.shape)}")
+    if not diff <= ENTRY_TOL:
+        fail(f"(k) {label}: engine tick != FrameLoop frame ({diff})")
+    del e, loop, second, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _backend.reset_counts()
+    lines = []
+    t0 = time.perf_counter()
+    with engine_log(lines):
+        if setup is None:
+            rc = main(argv)
+        else:
+            e = VQEngineTorch(argv, device=dev)
+            setup(e)
+            rc = e.run()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = dict(_backend.launches)
+    plain = dict(_backend.plain_cuda_calls)
+    if rc != 0:
+        fail(f"(k) {label}: exit code {rc}")
+    if max(plain.values()) != 0:
+        fail(f"(k) {label}: plain versions ran on CUDA tensors: {plain}")
+    files = ["loading.png", f"{scene}_frame{N_FRAMES:04d}.png",
+             f"{scene}_hdr10.png"] + ([f"{scene}_{context[0]}.png"]
+                                      if context is not None else [])
+    missing = [f for f in files if not (out_dir / f).is_file()]
+    if missing:
+        fail(f"(k) {label}: the run wrote no {missing}")
+    logged = [m for m in lines if "ms/frame avg" in m]
+    if not logged:
+        fail(f"(k) {label}: the engine logged no ms/frame")
+    ms = float(re.search(r"\(([\d.]+) ms/frame avg", logged[-1]).group(1))
+    say(f"[main] (k) {label}: exit code 0, wrote {files}; the engine's logged "
+        f"ms/frame {ms:.3f} over {N_FRAMES} ticks (its host clock from the "
+        f"first tick to the last frame's readback: '{logged[-1]}'); the whole "
+        f"run {wall:.1f} s with the load and the dumps; peak device memory "
+        f"{peak:.1f} MiB; launches {launches} ({({k: v / N_FRAMES for k, v in launches.items()})} "
+        f"per tick) on {card}")
+    return launches
+
+
+def phase_engine_path(dev, card: str) -> dict:
+    """(k) the engine shell: `python -m vqengine_tpu_torch -Test
+    -TestFrames=16` in-process (__main__.main) on Sponza at 1920x1080 with
+    the engine's defaults (MSAA, SSAO, motion, SSR, HDR on: the HDR10 dump
+    runs), then the Default level at 1920x1080 with RenderScale 0.75 on the
+    engine's graphics settings (1440x810 upscaled by FSR1 on every tick)
+    and one render context ("debug", 960x540 from camera 1) -> launches of
+    both runs."""
+    sponza = engine_run(dev, card, "Sponza, engine defaults", "Sponza")
+    context = ("debug", 960, 540, 1)
+
+    def scaled(e):
+        e.gfx.RenderScale = 0.75
+        e.create_render_context(*context)
+    default = engine_run(dev, card, "Default, RenderScale 0.75 (FSR1), a render "
+                         "context", "Default", setup=scaled, context=context)
+    return {k: sponza[k] + default[k] for k in sponza}
+
+
 def check_imports() -> None:
     bad = sorted(m for m in sys.modules if m in ("jax", "vqengine_tpu")
                  or m.startswith(("jax.", "vqengine_tpu.")))
@@ -2679,6 +2934,7 @@ def main() -> None:
     timed("MSAA card vs CPU", phase_msaa_card_vs_cpu, dev)
     timed("transparent card vs CPU", phase_transparent_card_vs_cpu, dev)
     timed("SSAO/SSR/motion card vs CPU", phase_post_card_vs_cpu, dev, env_cpu)
+    timed("post tail card vs CPU", phase_post_tail_card_vs_cpu, dev)
     timed("textures card vs CPU", phase_texture_card_vs_cpu, dev)
     launches = timed("main paths (a)-(e)", phase_main_path, dev, card, sponza,
                      renderer)
@@ -2688,7 +2944,8 @@ def main() -> None:
     timed("tessellation card vs CPU", phase_tess_card_vs_cpu, dev)
     li, stresstest = timed("main path (i)", phase_stresstest_path, dev, card)
     lj, terrain = timed("main path (j)", phase_terrain_path, dev, card)
-    launches = {k: launches[k] + lt[k] + lg[k] + lh[k] + li[k] + lj[k]
+    lk = timed("main path (k)", phase_engine_path, dev, card)
+    launches = {k: launches[k] + lt[k] + lg[k] + lh[k] + li[k] + lj[k] + lk[k]
                 for k in launches}
     if "--profile" in sys.argv[1:]:
         # timed before the traced frames, as phase_profile times its stages
@@ -2696,6 +2953,7 @@ def main() -> None:
         phase_profile(sponza, renderer)
         phase_profile_stress(stress)
         phase_profile_tess(stresstest, terrain)
+        phase_profile_engine(dev)
     check_imports()
     kernels = [
         dict(name="palette", route="cuda",

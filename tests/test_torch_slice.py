@@ -198,6 +198,46 @@ def test_entry_ldr_matches_jax():
         np.testing.assert_array_equal(out[key].numpy(), np.asarray(ref[key]))
 
 
+# the post chain's tail: the entry scene rendered at half its size and
+# upscaled by FSR1 to WIDTH x HEIGHT, without and with CAS before the upscale
+POST_CASES = {"fsr1": {}, "cas+fsr1": {"cas_sharpness": 0.5}}
+
+
+@pytest.fixture(scope="module")
+def post_tail_reference():
+    """The reference's frames of POST_CASES, op by op, rendered at 128x64
+    with the entry() frame's consts (the same 2:1 aspect). In this module
+    the reference's per-triangle ops are compiled already (or will be, for
+    test_entry_ldr_matches_jax), so the two frames cost the per-pixel
+    ones and the tail."""
+    scene, consts = graft._tiny_scene_and_consts(WIDTH, HEIGHT)
+    with compiled_rasters():
+        return {name: jg.render_forward(scene, consts, WIDTH // 2, HEIGHT // 2,
+                                        out_width=WIDTH, out_height=HEIGHT,
+                                        **kw)
+                for name, kw in POST_CASES.items()}
+
+
+@pytest.mark.parametrize("case", list(POST_CASES))
+def test_post_tail_frame_matches_jax(post_tail_reference, entry_cpu, case):
+    """render_forward's FSR1 upscale (128x64 -> 256x128), without and with
+    CAS (cas_sharpness 0.5), against the reference's render_forward at the
+    same arguments: tri_id equal at the render size, ldr (and the pre-tail
+    hdr) within 3e-4, the frames' bar (tests/test_multichip.py:73)."""
+    ref = post_tail_reference[case]
+    scene, consts = entry_cpu
+    out = tg.render_forward(scene, consts, WIDTH // 2, HEIGHT // 2,
+                            out_width=WIDTH, out_height=HEIGHT,
+                            **POST_CASES[case])
+    ldr = out["ldr"].numpy()
+    assert ldr.shape == (HEIGHT, WIDTH, 3) and np.isfinite(ldr).all()
+    assert tuple(out["hdr"].shape) == (HEIGHT // 2, WIDTH // 2, 3)
+    np.testing.assert_array_equal(out["tri_id"].numpy(), np.asarray(ref["tri_id"]))
+    np.testing.assert_allclose(ldr, np.asarray(ref["ldr"]), rtol=0, atol=3e-4)
+    np.testing.assert_allclose(out["hdr"].numpy(), np.asarray(ref["hdr"]),
+                               rtol=0, atol=3e-4)
+
+
 @pytest.mark.parametrize("name,golden", [("HelloTriangle", "hello_triangle"),
                                          ("HelloCube", "hello_cube"),
                                          ("HelloCube", "hello_cube_msaa")])
@@ -265,8 +305,12 @@ def entry_cpu():
     dict(cas_sharpness=0.5),
     dict(out_width=2 * WIDTH, out_height=2 * HEIGHT)])
 def test_unported_features_raise(entry_cpu, kw):
-    """Features of later slices raise. Seven cases, ported since, now hold
-    the reference's behaviour instead: textures (a 16^2 checkerboard, the
+    """Features of later slices raised. Every case is ported since and
+    holds the reference's behaviour instead: cas_sharpness sharpens ldr
+    and out_width/out_height upscale it with FSR1 to the new size, the
+    frame before the tail (hdr, depth, tri_id, object_id) unchanged
+    (test_post_tail_frame_matches_jax and tests/test_torch_post.py hold
+    them against the reference); textures (a 16^2 checkerboard, the
     entry scene's materials pointing their diffuse slot at it) change the
     frame, and with aniso_taps 8 the adaptive walk reports tex_aniso
     (tests/test_torch_texture.py holds them against the reference);
@@ -341,8 +385,18 @@ def test_unported_features_raise(entry_cpu, kw):
         for key in ("ldr", "hdr", "depth", "tri_id", "object_id"):
             assert torch.equal(out[key], base[key]), key
         return
-    with pytest.raises(NotImplementedError):
-        tg.render_forward(scene, consts, WIDTH, HEIGHT, **kw)
+    # the post chain's tail: CAS sharpens ldr; FSR1 upscales it to
+    # out_width x out_height; the frame before the tail stays as it was
+    base = tg.render_forward(scene, consts, WIDTH, HEIGHT)
+    out = tg.render_forward(scene, consts, WIDTH, HEIGHT, **kw)
+    for key in ("hdr", "depth", "tri_id", "object_id"):
+        assert torch.equal(out[key], base[key]), key
+    assert bool(torch.isfinite(out["ldr"]).all())
+    if "out_width" in kw:
+        assert tuple(out["ldr"].shape) == (kw["out_height"], kw["out_width"], 3)
+    else:
+        assert out["ldr"].shape == base["ldr"].shape
+        assert not torch.equal(out["ldr"], base["ldr"])
 
 
 @pytest.mark.parametrize("name", ["Default", "Sponza"])

@@ -550,12 +550,14 @@ def test_default_frame_matches_jax(default_frames, frame):
 
 def test_engine_default_flags():
     """render_flags maps FGraphicsSettings' compiled defaults to the frame
-    the engine renders: MSAA, SSAO "medium", motion vectors, SSR, ESM."""
+    the engine renders: MSAA, SSAO "medium", motion vectors, SSR, ESM, at
+    render scale 1; a RenderScale below 1 passes through (the renderer then
+    renders smaller and upscales with FSR1)."""
     assert render_flags(FGraphicsSettings()) == dict(
         msaa=True, enable_ssao=True, ssao_quality="medium",
-        enable_motion_vectors=True, enable_ssr=True, shadow_filter="esm")
-    with pytest.raises(NotImplementedError):
-        render_flags(FGraphicsSettings(RenderScale=0.5))
+        enable_motion_vectors=True, enable_ssr=True, shadow_filter="esm",
+        render_scale=1.0)
+    assert render_flags(FGraphicsSettings(RenderScale=0.5))["render_scale"] == 0.5
 
 
 def test_renderer_engine_default_frames():
@@ -603,11 +605,13 @@ def default_env():
         return tg.build_environment(load_scene("Default", 192, 108).equirect, CPU)
 
 
-@pytest.mark.parametrize("golden", ["default_ssao", "default_ssr"])
+@pytest.mark.parametrize("golden", ["default_ssao", "default_ssr",
+                                    "default_hdr10"])
 def test_default_goldens_on_port(default_env, golden):
-    """The goldens default_ssao and default_ssr (tests/test_golden.py:166-169:
-    Default with SSAO "medium", or with SSR; no MSAA, 64^2 shadow maps)
-    through the port on the CPU, on one build of the scene's environment."""
+    """The goldens default_ssao, default_ssr and default_hdr10
+    (tests/test_golden.py:166-172: Default with SSAO "medium", with SSR, or
+    tonemapped to ST.2084; no MSAA, 64^2 shadow maps) through the port on
+    the CPU, on one build of the scene's environment."""
     s = golden_scores(golden, render_golden(golden, CPU, env=default_env))
     assert s["ok"], s
 

@@ -8,8 +8,12 @@ path (e) (MSAA, the environment) and in the engine's default
 (settings.render_flags) whole, without SSAO and without SSR; then, from
 each level's camera 0, the amplifier (graph.append_amplified_patches) and
 the whole front end (graph.geometry_setup_gbuf) of Terrain (576 quad
-patches) and StressTest (the TessRock's 12 tri patches). To compare two
-trees, run it from the root of each.
+patches) and StressTest (the TessRock's 12 tri patches); then the post
+tail on a W x H frame (CAS, FSR1 from 0.75 of the size, the ST.2084
+tonemap, each draw mode, the magnifier and the outline) and one engine
+tick (engine.VQEngineTorch on Sponza with the engine's defaults, and with
+RenderScale 0.75: FSR1 in every tick). To compare two trees, run it from
+the root of each.
 """
 from __future__ import annotations
 
@@ -88,6 +92,42 @@ def amplifier(name: str) -> None:
           f"end {front} ops a frame", flush=True)
 
 
+def post_tail() -> None:
+    from vqengine_tpu_torch.ops import colorspace as cs
+    from vqengine_tpu_torch.ops import ffx, postprocess as pp
+    from vqengine_tpu_torch.ops import visualization as viz
+    g = torch.Generator().manual_seed(0)
+    ldr = torch.rand(H, W, 3, generator=g)
+    src = torch.rand(H * 3 // 4, W * 3 // 4, 3, generator=g)
+    gbuf = dict(depth=torch.rand(H, W, generator=g), ao=ldr[..., 0],
+                motion=ldr[..., :2] - 0.5, normals=ldr * 2 - 1,
+                roughness=ldr[..., 1], metalness=ldr[..., 2], albedo=ldr,
+                object_id=(ldr[..., 0] * 8).to(torch.int32) - 1)
+    rows = {"CAS": lambda: ffx.cas(ldr, 0.5),
+            "FSR1 (EASU + RCAS)": lambda: ffx.fsr1(src, H, W),
+            "ST.2084 tonemap": lambda: pp.tonemap(ldr * 4, cs.DISPLAY_CURVE_ST2084),
+            "magnifier": lambda: viz.magnifier(ldr),
+            "outline": lambda: viz.outline(ldr, gbuf["object_id"], 3)}
+    for mode in range(1, 9):
+        rows[f"draw mode {mode}"] = lambda m=mode: viz.visualize(m, ldr, **gbuf)
+    print("post tail: " + ", ".join(f"{k} {counted(fn)}" for k, fn in rows.items())
+          + " ops", flush=True)
+
+
+def engine_tick() -> None:
+    from vqengine_tpu_torch.engine.engine import VQEngineTorch
+    e = VQEngineTorch([f"-W={W}", f"-H={H}", "-Scene=Sponza"], device=CPU)
+    e.start_loading_scene("Sponza")
+    # the static casters' maps cached at 64^2, as sponza_frames caches them
+    c = e.renderer.build_frame_constants(e.scene_buffers, e.cameras[0], e.lights)
+    e.loop.static_maps = e.renderer.precompute_shadow_maps(c, (64, 64, 64))
+    for scale in (1.0, 0.75):
+        e.gfx.RenderScale = scale
+        n = counted(e.tick)
+        print(f"engine tick, Sponza {W}x{H}, the engine's defaults, RenderScale "
+              f"{scale}: {n} ops", flush=True)
+
+
 def main() -> None:
     torch.set_num_threads(2)
     sponza_frames()
@@ -96,6 +136,11 @@ def main() -> None:
             amplifier(name)
         except NotImplementedError as e:      # a tree before tessellation
             print(f"{name}: {e}")
+    try:
+        post_tail()
+        engine_tick()
+    except ImportError as e:                  # a tree before the post tail
+        print(f"post tail: {e}")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,11 @@ from the reference (the JAX package, run op by op on the CPU):
 
 Prints one line per probe: XLA's exp (ops/texture.exp_xla), log10
 (ops/culling.log10_xla), glibc's powf (ops/colorspace.powf, the sRGB
-decode), the sum orders of the tessellation einsums, and with --ibl the
-bf16 environment tables at Sponza's 512x256 sky and the default sizes
+decode), the sum orders of the tessellation einsums, the Rec. 709/2020
+matrices' `c @ M.T` (colorspace.color_matrix) over N rows, against pairs
+and an FMA chain in every channel, the PQ curve's base
+(c1 + c2 cp) / (1 + c3 cp) and the whole curve, and with --ibl the bf16
+environment tables at Sponza's 512x256 sky and the default sizes
 (about two minutes on one core). Needs jax, so it runs on a CPU host, not
 on the card.
 """
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import vqengine_tpu.ops._backend  # noqa: F401  (the reference's matmul precision)
 from vqengine_tpu.ops import colorspace as jcs
 from vqengine_tpu.ops import tessellation as jt
 from vqengine_tpu.render import graph as jg
@@ -70,6 +74,30 @@ def main() -> None:
           f"{differ(tt.eval_tri_patches(torch.from_numpy(corners[:12, :3]), torch.from_numpy(b)), jt.eval_tri_patches(jnp.asarray(corners[:12, :3]), jnp.asarray(b)))} "
           f"of {12 * 36 * 3} differ (12 patches; a single patch is a plain "
           f"dot that XLA sums otherwise)")
+    from vqengine_tpu_torch.ops.raster import _fma
+    for n in (15, 31, 1000, 1001, 1296, 20736):
+        cm = (rng.uniform(-2.0, 20.0, (n, 3))).astype(np.float32)
+        ref = jcs.rec709_to_rec2020(jnp.asarray(cm))
+        ct = torch.from_numpy(cm)
+        mt = torch.tensor(tcs._REC709_TO_REC2020)
+        p = [ct[:, None, k] * mt[:, k] for k in range(3)]
+        pairs = (p[0] + p[1]) + p[2]
+        chain = _fma(ct[:, None, 2], mt[:, 2], _fma(ct[:, None, 1], mt[:, 1], p[0]))
+        print(f"Rec709->Rec2020 c @ M.T, N = {n} rows: color_matrix "
+              f"{differ(tcs.rec709_to_rec2020(ct), ref)}, pairs in every channel "
+              f"{differ(pairs, ref)}, an FMA chain in every channel "
+              f"{differ(chain, ref)} of {3 * n} differ")
+    pq = np.concatenate([rng.random(300_000) ** 4, rng.uniform(0, 10, 100_000)]
+                        ).astype(np.float32)
+    cp = tcs.powf(torch.from_numpy(pq), tcs._PQ_M1)
+    jcp = jnp.power(jnp.abs(jnp.asarray(pq)), 2610.0 / 4096.0 / 4)
+    base = (tcs._PQ_C1 + tcs._PQ_C2 * cp) / (1.0 + tcs._PQ_C3 * cp)
+    jbase = (3424.0 / 4096.0 + 2413.0 / 4096.0 * 32 * jcp) / (1.0 + 2392.0 / 4096.0 * 32 * jcp)
+    print(f"PQ curve on {pq.size} values in [0, 10]: |c|^m1 {differ(cp, jcp)}, "
+          f"the base {differ(base, jbase)}, the curve "
+          f"{differ(tcs.linear_to_st2084(torch.from_numpy(pq)), jcs.linear_to_st2084(jnp.asarray(pq)))} "
+          f"differ (torch.pow in f64 rounded to f32: "
+          f"{differ(torch.pow(base.double(), tcs._PQ_M2).float(), jcs.linear_to_st2084(jnp.asarray(pq)))})")
     if "--ibl" in sys.argv[1:]:
         eq = ti.procedural_sky_equirect(512, 256)
         ref_env = jg.build_environment(jnp.asarray(eq))

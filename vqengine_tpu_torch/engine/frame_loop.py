@@ -8,8 +8,11 @@ frame's world matrices and view-projection; the moved items join the sticky
 dynamic set (motion vectors take the palette path past 16 items); the
 casters' shadow maps are rendered once and cached when nothing animates and
 every caster is static or stationary, else the renderer draws them inside
-every frame; the SSR history carries over. This is not the engine shell (no
-input, events, HUD or render contexts).
+every frame; the SSR history carries over. Frames render without readback
+(no host read of the binning demand, so the pair bucket stays where it
+is), as the engine's tick renders. engine/engine.VQEngineTorch is the
+engine shell around the same steps (input, events, debug views, HUD and
+render contexts).
 """
 from __future__ import annotations
 
@@ -44,10 +47,15 @@ class FrameLoop:
         self.dynamic_items: tuple = ()
         self.ssr_history = None
         self.static_maps: dict | None = None
+
+    @property
+    def cache_shadow_maps(self) -> bool:
+        """STATIC/STATIONARY mobility: with no update hook and every enabled
+        caster static or stationary, the maps are cached across frames
+        (decided each frame, as the engine decides it)."""
         casters = [l for l in self.lights if l.enabled and l.casts_shadows]
-        # STATIC/STATIONARY mobility: the maps are cached across frames
-        self.cache_shadow_maps = (self.hook is None and bool(casters) and all(
-            l.mobility != EMobility.DYNAMIC for l in casters))
+        return self.hook is None and bool(casters) and all(
+            l.mobility != EMobility.DYNAMIC for l in casters)
 
     def advance(self, dt: float = 1 / 60) -> None:
         """The simulation step: the scene's update hook, if it has one."""
@@ -63,8 +71,9 @@ class FrameLoop:
             hdri_yaw=yaw01 * 2.0 * math.pi, prev_world=self.prev_world,
             prev_view_proj=self.prev_vp)
 
-    def render(self) -> dict:
-        """One frame."""
+    def render(self, readback: bool = False) -> dict:
+        """One frame (readback: VQRendererTorch.render's; the engine's tick
+        renders without)."""
         fields = self.constants()
         consts = frame_constants_from_numpy(fields, self.renderer.device)
         if self.cache_shadow_maps and self.static_maps is None:
@@ -81,7 +90,8 @@ class FrameLoop:
         self.prev_world = world
         self.prev_vp = fields["view_proj"]
         out = self.renderer.render(
-            consts, self.width, self.height, shadow_maps=self.static_maps,
+            consts, self.width, self.height, readback=readback,
+            shadow_maps=self.static_maps,
             ssr_history=self.ssr_history,
             dynamic_item_ids=self.dynamic_items, **self.flags)
         self.ssr_history = out.get("ssr_history")

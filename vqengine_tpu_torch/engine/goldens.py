@@ -45,6 +45,8 @@ SCENES = {"hello_triangle": ("HelloTriangle", {}),
                                        "enable_ssao": True}),
           "default_ssr": ("Default", {"shadow_dims": (64, 64, 64),
                                       "enable_ssr": True}),
+          "default_hdr10": ("Default", {"shadow_dims": (64, 64, 64),
+                                        "hdr10": True}),
           "default_pcf": ("Default", {"shadow_dims": (128, 64, 128),
                                       "shadow_filter": "pcf"}),
           "envmap_unit_test": ("EnvironmentMapUnitTest", {}),

@@ -1,17 +1,32 @@
 """Color-space curves — counterpart of ``vqengine_tpu/ops/colorspace.py``
-(HDR.hlsl). Ported: what the tonemapper's sRGB and linear outputs use and
-the pow-2.2 texture decode; the exact sRGB pair and the ST.2084 / Rec2020
-path come with the slices that use them.
+(HDR.hlsl): the exact piecewise sRGB pair and the tonemapper's 2-sqrt sRGB
+polynomial, the pow-2.2 texture decode, the Rec. 709 <-> Rec. 2020
+primaries and the ST.2084 (PQ) curve of the HDR10 output.
+
+Every jnp.power of the reference is glibc's powf (powf below), and its
+3x3 color matrix products sum in the order XLA's CPU dot sums them
+(color_matrix).
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from .raster import _fma, div_true
+
+# PQ reference display (HDR.hlsl:44)
+ST2084_MAX = 10000.0
+
+# display curve enum (HDR.hlsl:35-37)
 DISPLAY_CURVE_SRGB = 0
 DISPLAY_CURVE_ST2084 = 1
 DISPLAY_CURVE_LINEAR = 2
+
+# color space enum (HDR.hlsl:40-41)
+COLOR_SPACE_REC709 = 0
+COLOR_SPACE_REC2020 = 1
 
 
 def linear_to_srgb_fast(c: torch.Tensor) -> torch.Tensor:
@@ -24,7 +39,12 @@ def linear_to_srgb_fast(c: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0.0031308, 12.92 * x, 1.055 * p - 0.055)
 
 
-_F32_2_2 = 2.200000047683716      # the reference's exponent, 2.2 in f32
+# the reference's exponents as its weak-typed Python floats round them
+_F32_2_2 = float(np.float32(2.2))
+_F32_2_4 = float(np.float32(2.4))
+_F32_INV_2_4 = float(np.float32(1.0 / 2.4))
+_F32_SRGB_CUT = float(np.float32(0.0031308))
+_F32_SRGB_CUT_INV = float(np.float32(0.04045))
 
 # glibc's powf (sysdeps/ieee754/flt-32/e_powf.c, the reference's libm): the
 # tables and polynomials of its log2 (__powf_log2_data: 16 subintervals of
@@ -121,9 +141,93 @@ def powf(x: torch.Tensor, y: float) -> torch.Tensor:
     return torch.where(torch.isnan(x) | torch.isinf(x), x, out)
 
 
+def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
+    """HDR.hlsl:76-80, the exact piecewise sRGB OETF (x^(1/2.4) as powf)."""
+    return torch.where(c < _F32_SRGB_CUT, 12.92 * c,
+                       1.055 * powf(torch.abs(c), _F32_INV_2_4) - 0.055)
+
+
+def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
+    """HDR.hlsl:82-86, the exact piecewise sRGB EOTF (x^2.4 as powf; the
+    divisions by 12.92 and 1.055 rounded once)."""
+    return torch.where(c < _F32_SRGB_CUT_INV, div_true(c, 12.92),
+                       powf(div_true(torch.abs(c + 0.055), 1.055), _F32_2_4))
+
+
 def srgb_to_linear_fast(c: torch.Tensor) -> torch.Tensor:
     """ShadingMath.hlsl:65, the pow-2.2 approximation the forward-lighting
     shader uses for the albedo and emissive decode: the reference's
     jnp.power is libm's powf, which powf() mirrors (torch's f32 pow differs
     on 1.8% of inputs in [0, 1], its f64 pow rounded to f32 on 0.06%)."""
     return powf(torch.clamp(c.float(), min=0.0), _F32_2_2)
+
+
+_REC709_TO_REC2020 = ((0.627402, 0.329292, 0.043306),
+                      (0.069095, 0.919544, 0.011360),
+                      (0.016394, 0.088028, 0.895578))
+_REC2020_TO_REC709 = ((1.660496, -0.587656, -0.072840),
+                      (-0.124547, 1.132895, -0.008348),
+                      (-0.018154, -0.100597, 1.118751))
+
+
+@functools.cache
+def _matrix(m: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(m, dtype=torch.float32, device=device)
+
+
+def _pair_rows(n: int) -> int:
+    """Of N rows, how many lead rows XLA's CPU dot adds in pairs in output
+    channels 0 and 1 (measured over N = 1-139 and around powers of two):
+    whole blocks of 8 from N = 32 on, and below that for N of 16-19 and
+    24-27 only."""
+    if n < 16 or (n < 32 and (n // 4) % 2):
+        return 0
+    return n // 8 * 8
+
+
+def color_matrix(c: torch.Tensor, m) -> torch.Tensor:
+    """c [..., 3] @ m.T for a 3x3 f32 matrix m, summed as XLA's CPU dot
+    sums the reference's `c @ M.T` over its N = c.numel() / 3 rows
+    (measured, tools/rounding_probes_torch.py): output channel 2 is an FMA
+    chain, fma(c2, m20, fma(c1, m21, p0)); channels 0 and 1 add their
+    three products in pairs, (p0 + p1) + p2, in the lead rows _pair_rows(N)
+    and run the FMA chain in the rest."""
+    mt = _matrix(m, c.device)
+    x = [c[..., None, j] for j in range(3)]
+    col = [mt[:, j] for j in range(3)]
+    p0 = x[0] * col[0]
+    fma = _fma(x[2], col[2], _fma(x[1], col[1], p0))
+    rows = c.numel() // 3
+    lead = _pair_rows(rows)
+    if lead == 0:
+        return fma
+    pairs = (p0[..., :2] + x[1] * col[1][:2]) + x[2] * col[2][:2]
+    flat = torch.cat([pairs, fma[..., 2:]], dim=-1).reshape(rows, 3)
+    if lead < rows:
+        flat = torch.cat([flat[:lead], fma.reshape(rows, 3)[lead:]])
+    return flat.reshape(fma.shape)
+
+
+def rec709_to_rec2020(c: torch.Tensor) -> torch.Tensor:
+    return color_matrix(c, _REC709_TO_REC2020)
+
+
+def rec2020_to_rec709(c: torch.Tensor) -> torch.Tensor:
+    return color_matrix(c, _REC2020_TO_REC709)
+
+
+# the PQ constants (HDR.hlsl:110-119), each exact in f32
+_PQ_M1 = 2610.0 / 4096.0 / 4
+_PQ_M2 = 2523.0 / 4096.0 * 128
+_PQ_C1 = 3424.0 / 4096.0
+_PQ_C2 = 2413.0 / 4096.0 * 32
+_PQ_C3 = 2392.0 / 4096.0 * 32
+
+
+def linear_to_st2084(c: torch.Tensor) -> torch.Tensor:
+    """HDR.hlsl:110-119, the PQ curve (input normalized to ST2084_MAX):
+    ((c1 + c2 |c|^m1) / (1 + c3 |c|^m1))^m2, both powers glibc's powf; the
+    base rounds op by op as the reference's, so the ~79-fold m2 sees the
+    same bits."""
+    cp = powf(torch.abs(c), _PQ_M1)
+    return powf((_PQ_C1 + _PQ_C2 * cp) / (1.0 + _PQ_C3 * cp), _PQ_M2)

@@ -1356,16 +1356,12 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
     references. enable_alpha_mask discards fragments whose sampled alpha
     fails the cutout test (one bounded K1 peel); without textures there is
     no sampled alpha, and the frame is the one without it, as in the
-    reference."""
-    unported = {
-        "cas_sharpness": cas_sharpness is not None,
-        "resize": ((out_width is not None and out_width != width)
-                   or (out_height is not None and out_height != height)),
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(f"render_forward: not ported yet: {asked}")
-
+    reference. output_display_curve (colorspace.DISPLAY_CURVE_*) picks the
+    tonemapper's curve, apply_gamma its sRGB encode. The post chain's tail
+    runs on ldr: cas_sharpness (0..1, None = off) sharpens it with CAS;
+    out_width/out_height, when they differ from width/height, upscale it
+    with FSR1 (EASU + RCAS) to [out_height, out_width], except on the
+    ST.2084 curve; every other output stays at width x height."""
     # the reference's gate: the peel needs a sampled alpha, so it runs only
     # with textures
     alpha_test = enable_alpha_mask and textures is not None
@@ -1460,6 +1456,15 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
                                width, height, env=env, textures=textures,
                                slots_used=slots_used)
     ldr = pp.tonemap(hdr, output_display_curve, apply_gamma=apply_gamma)
+    # the post chain's tail (SceneRendering.cpp:2507-2788): CAS, then the
+    # FSR1 upscale when rendering below the display size (the HDR path
+    # skips FSR, as in the reference)
+    if cas_sharpness is not None:
+        ldr = ffx.cas(ldr, cas_sharpness)
+    if (out_width is not None and out_height is not None
+            and (out_width != width or out_height != height)
+            and output_display_curve != cs.DISPLAY_CURVE_ST2084):
+        ldr = ffx.fsr1(ldr, out_height, out_width)
     out = {"ldr": ldr, "hdr": hdr, "depth": depth, "tri_id": tri_id,
            "object_id": torch.where(mask, mat["object_id"],
                                     torch.full_like(mat["object_id"], -1)),

@@ -2,17 +2,22 @@
 (VQRendererTPU): owns the device scene (its opaque and transparent
 parts), its environment maps (built at load) and its textures, with the
 scene's texture-slot usage and alpha-mask permutation, packs the per-frame
-constants, renders the cached shadow maps of static casters and keeps the
-demand-sized binning capacity (the pair bucket).
+constants, renders the cached shadow maps of static casters, keeps the
+demand-sized binning capacity (the pair bucket) and the frame statistics
+(FRenderStats, for the profiler HUD and panel).
 
 The reference caches one jitted graph per static option set; the port
 runs eagerly, so there is no graph cache.
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass, fields
+
 import numpy as np
 import torch
 
+from ..ops import colorspace as cs
 from ..ops import raster
 from ..scene.light import (ELightType, NUM_LIGHTS_POINT, NUM_LIGHTS_SPOT,
                            NUM_SHADOWING_LIGHTS_POINT,
@@ -118,11 +123,46 @@ def frame_constants_numpy(buffers: SceneBuffers, camera, lights,
     )
 
 
+@dataclass
+class FRenderStats:
+    """Reference Renderer.h:85-94."""
+    num_frames_rendered: int = 0
+    num_draws: int = 0
+    num_dispatches: int = 0
+    last_frame_ms: float = 0.0
+
+
+@dataclass
+class FrameOutput:
+    """A frame as the engine keeps it (the reference's FrameOutput): the
+    render's tensors, on the renderer's device, by name; ldr may be a host
+    array once the engine's debug views have drawn the UI panel into it."""
+    ldr: object
+    depth: torch.Tensor | None = None
+    tri_id: torch.Tensor | None = None
+    object_id: torch.Tensor | None = None
+    ao: torch.Tensor | None = None
+    motion: torch.Tensor | None = None
+    ssr_history: torch.Tensor | None = None
+    overflow: torch.Tensor | None = None
+    hdr: torch.Tensor | None = None
+    saturation: dict | None = None
+    pair_demand: torch.Tensor | None = None
+
+    @classmethod
+    def of(cls, out: dict) -> "FrameOutput":
+        """The FrameOutput of VQRendererTorch.render's dict."""
+        return cls(**{f.name: out.get(f.name) for f in fields(cls)})
+
+
 class VQRendererTorch:
     """Scene owner and frame entry point on one torch device."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
+        self.stats = FRenderStats()
+        # the loaded scene's triangle count (FRenderStats.num_draws)
+        self._num_tris = 0
         self.scene: graph.DeviceScene | None = None
         # the scene's transparent part (material alpha < 1), or None
         self.scene_t: graph.DeviceScene | None = None
@@ -160,6 +200,7 @@ class VQRendererTorch:
         self._pair_demand_max = 0
         self._any_alpha_mask = bool((buffers.materials[:, 23] >= 0).any())
         self._slots_used = graph.slots_used_of(buffers.materials)
+        self._num_tris = int(buffers.indices.shape[0])
 
     def build_frame_constants(self, buffers: SceneBuffers, camera, lights,
                               **kw) -> graph.FrameConstants:
@@ -180,12 +221,24 @@ class VQRendererTorch:
                                         filter_mode)
 
     def render(self, consts: graph.FrameConstants, width: int, height: int,
-               **flags) -> dict:
+               hdr10: bool = False, readback: bool = True,
+               render_scale: float = 1.0,
+               cas_sharpness: float | None = None, **flags) -> dict:
         """One forward frame (graph.render_forward) at the current pair
         bucket, lit by the scene's environment maps (env=None renders
         without them) and textured by the scene's textures (textures=None
         renders without them), with the scene's transparent part blended
-        over it; the opaque pass's measured demand then updates the bucket.
+        over it. With readback (the default) the opaque pass's measured
+        demand and overflow are read on the host and update the bucket;
+        without, the frame makes no host read and leaves the bucket as it
+        is, as the reference's engine tick renders (its bucket moves only
+        on readback frames).
+        hdr10 tonemaps to the ST.2084 curve instead of sRGB. render_scale
+        (the engine's RenderScale) renders at max(64, int(width * scale)) x
+        max(64, int(height * scale)) and FSR1 upscales ldr to width x
+        height (not on the ST.2084 curve, as in the reference); the other
+        outputs keep the render size. cas_sharpness (0..1, None = off)
+        sharpens ldr with CAS.
         The textures are sampled with the scene's slot usage and, where a
         material has an alpha-mask map, the alpha-mask peel, as the
         reference's renderer keys them at load; aniso_taps > 1 walks the
@@ -207,10 +260,24 @@ class VQRendererTorch:
         ids = flags.get("dynamic_item_ids")
         if ids is not None and len(ids) > 16:
             flags["dynamic_item_ids"] = None
-        out = graph.render_forward(self.scene, consts, width, height,
+        if render_scale != 1.0:
+            rw = max(64, int(width * render_scale))
+            rh = max(64, int(height * render_scale))
+        else:
+            rw, rh = width, height
+        curve = cs.DISPLAY_CURVE_ST2084 if hdr10 else cs.DISPLAY_CURVE_SRGB
+        t0 = time.perf_counter()
+        out = graph.render_forward(self.scene, consts, rw, rh,
+                                   output_display_curve=curve,
+                                   out_width=width, out_height=height,
+                                   cas_sharpness=cas_sharpness,
                                    pair_capacity=self.pair_bucket,
                                    scene_transparent=self.scene_t, **flags)
-        self._update_pair_bucket(out)
+        if readback:
+            self._update_pair_bucket(out)
+        self.stats.num_frames_rendered += 1
+        self.stats.num_draws = self._num_tris
+        self.stats.last_frame_ms = (time.perf_counter() - t0) * 1e3
         return out
 
     def _update_pair_bucket(self, out: dict) -> None:

@@ -169,6 +169,31 @@ the final line:
      version and its second tick against FrameLoop's frame. Exit code 0,
      the files written, the engine's logged ms/frame, launches and peak
      memory (`[engine] (k)`, `[main] (k)` lines).
+  9e. multi-GPU (`[multigpu]` lines; parallel/multichip.py, launched by
+     parallel/launch.py): (l) the engine's default frame (g), sharded:
+     Sponza 1920x1080 on dp 1 x sp 3 gloo ranks sharing cuda:0 (spawned
+     processes; each exchange copies its slab to the host and back), each
+     rank building its scene, environment and ESM maps (bitwise equal across
+     the ranks and to the single-card renderer's; each rank's 8 K2
+     precompute launches and every launch of its first frame held against
+     the plain version), two frames with the SSR history carried, ML_FRAMES
+     timed frames (each rank's ms/frame by CUDA events and peak memory; the
+     ranks time-slice one card, no scaling figure), two frames with SSAO and
+     SSR off; the gathered frames against the single-card frames of the
+     same cameras at the reference's bars (tests/test_multichip.py: mean
+     3e-3 and 99th percentile 0.05 with SSAO and SSR; 0.1% of the pixels
+     more than 1e-3 apart and a maximum below 0.26 without), overflow 0 in
+     every band; the translucent Sponza of (f) the same way, two frames
+     with SSAO and SSR off (each band's two K1-bounded layers held against
+     the plain version, the frames at the bars without SSAO and SSR); a
+     band's binning, MSAA raster and edge resolve timed alone on the card,
+     band by band; then entry.dryrun_multigpu's scene at 128x64 on dp 2 x
+     sp 2, gloo ranks on the card against gloo ranks on the CPU (ldr, AO,
+     motion and the SSR history within ENTRY_TOL, AO_TOL, MOTION_TOL,
+     HIST_TOL); NCCL with one rank on cuda:0; and with four cards Sponza on
+     dp 2 x sp 2 over NCCL, one rank per card, each dp row its own views
+     (else a line says it was not run). The ranks' launches join the kernel counts; the phase ends with
+     its `[time] multi-GPU (l)` line.
 `--profile` adds stage rows (among them the environment term, the
 skydome, the environment build, SSAO, motion vectors, the SSR trace,
 denoise and composite, and the stress frame's material pass with and
@@ -192,6 +217,11 @@ from pathlib import Path
 
 import torch
 
+# every launch held against its plain version (K1's G-buffer within
+# GBUF_TOL, all else bitwise); a difference raises
+from vqengine_tpu_torch.ops.launch_check import (GBUF_TOL, bitwise_equal,
+                                                 checked_launches)
+
 W, H = 1920, 1080
 N_FRAMES = 16
 N_SIDE_FRAMES = 4       # maps in the frame; PCF
@@ -199,7 +229,6 @@ N_UNSHADOWED = 8        # shadows off
 PROFILE_FRAMES = 3
 SMALL_W, SMALL_H = 192, 108
 SMALL_DIMS = (64, 64, 64)
-GBUF_TOL = 1e-6   # the kernel mirrors the plain version's rounding
 ENTRY_TOL = 3e-4  # card vs CPU ldr: the multichip bar of the reference
 # card vs CPU, the engine's default passes: the AO's blur and upsample
 # weights go through exp, which the card rounds otherwise; the motion
@@ -255,12 +284,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return a.shape == b.shape and torch.equal(a, b)
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -1352,72 +1375,6 @@ def recorded_bounded(calls: list):
         yield calls
     finally:
         raster.rasterize_gbuf = k1
-
-
-@contextlib.contextmanager
-def checked_launches(found: dict):
-    """While the context lasts, every K1 (any variant), K2 (either sample
-    mode) and K3 launch on CUDA tensors is followed by its plain version
-    on the same inputs: ids, depths, coverage and K3's rows bitwise, the
-    G-buffer within GBUF_TOL, else the run fails. found[launch name] is
-    (launches checked, max |kernel - plain|, one note per launch)."""
-    from vqengine_tpu_torch.ops import palette, raster
-    k1, k2, k3 = (raster._rasterize_gbuf_cuda, raster._rasterize_cuda,
-                  palette._palette_lookup_cuda)
-
-    def note(name: str, err: float, what: str) -> None:
-        n, e, whats = found.get(name, (0, 0.0, []))
-        found[name] = (n + 1, max(e, err), whats + [what])
-
-    def stream(binned, width, height) -> str:
-        return (f"{width}x{height}: pair demand {int(binned.demand)}, capacity "
-                f"{binned.pair_cap}, {binned.pairs.shape[0] // raster.GROUP} "
-                f"groups")
-
-    def gbuf(binned, width, height, msaa, zbound):
-        out = k1(binned, width, height, msaa, zbound)
-        plain = raster.rasterize_gbuf_plain(binned, width, height, msaa, zbound)
-        name = raster.gbuf_kernel_name(msaa, zbound is not None)
-        torch.cuda.synchronize()
-        for key, a, b in zip(("depth", "tri_id", "gbuf", "coverage"), out, plain):
-            if key != "gbuf" and not bitwise_equal(a, b):
-                fail(f"{name} {stream(binned, width, height)}: {key} differs "
-                     f"on {int((a != b).sum())} values")
-        err = float((out[2] - plain[2]).abs().max())
-        if not err <= GBUF_TOL:
-            fail(f"{name} {stream(binned, width, height)}: gbuf max |kernel - "
-                 f"plain| {err} > {GBUF_TOL}")
-        note(name, err, stream(binned, width, height))
-        return out
-
-    def vis(binned, width, height, msaa):
-        out = k2(binned, width, height, msaa)
-        plain = raster.rasterize_plain(binned, width, height, msaa)
-        name = "raster_vis_msaa4" if msaa else "raster_vis"
-        torch.cuda.synchronize()
-        if not (bitwise_equal(out[0], plain[0]) and bitwise_equal(out[1], plain[1])):
-            fail(f"{name} {stream(binned, width, height)}: kernel != plain on "
-                 f"{int((out[1] != plain[1]).sum())} ids, "
-                 f"{int((out[0] != plain[0]).sum())} depths")
-        note(name, 0.0, stream(binned, width, height))
-        return out
-
-    def lookup(idx, table):
-        out = k3(idx, table)
-        plain = palette.palette_lookup_plain(idx, table)
-        torch.cuda.synchronize()
-        what = f"{idx.numel()} ids into [{table.shape[0]}, {table.shape[1]}]"
-        if not bitwise_equal(out, plain):
-            fail(f"palette {what}: kernel != plain")
-        note("palette", 0.0, what)
-        return out
-    raster._rasterize_gbuf_cuda, raster._rasterize_cuda = gbuf, vis
-    palette._palette_lookup_cuda = lookup
-    try:
-        yield found
-    finally:
-        raster._rasterize_gbuf_cuda, raster._rasterize_cuda = k1, k2
-        palette._palette_lookup_cuda = k3
 
 
 def report_checked(label: str, found: dict, want: dict,
@@ -2901,6 +2858,371 @@ def phase_engine_path(dev, card: str) -> dict:
     return {k: sponza[k] + default[k] for k in sponza}
 
 
+# (l): the sharded default frame. Bars of the reference's sharded renderer
+# against its single-device frame (tests/test_multichip.py): with SSAO and
+# SSR on, the mean and the 99th percentile of |ldr diff| (:222-223,
+# :273-274); with them off, the share of pixels more than 1e-3 apart and
+# the largest difference (:202-203: a band shift can flip an MSAA sample
+# that sits an ulp from an edge, one 0.25 coverage step)
+ML_SP = 3                 # 1080 / 3 = 360 rows, a multiple of 4
+ML_FRAMES = 8             # timed frames per rank
+SEAM_MEAN, SEAM_P99 = 3e-3, 0.05
+EDGE_BAD, EDGE_SHARE, EDGE_MAX = 1e-3, 1e-3, 0.26
+
+
+def sharded_flags() -> tuple[dict, dict]:
+    """(the single-card render flags of path (g), the same frame's
+    render_forward_sharded flags)."""
+    from vqengine_tpu_torch.engine.settings import FGraphicsSettings, render_flags
+    gf = dict(render_flags(FGraphicsSettings()), dynamic_item_ids=())
+    if gf["shadow_filter"] != "esm" or gf["render_scale"] != 1.0:
+        fail(f"(l) expects ESM maps at render scale 1: {gf}")
+    keep = ("msaa", "enable_ssao", "ssao_quality", "enable_motion_vectors",
+            "enable_ssr", "dynamic_item_ids")
+    return gf, {k: gf[k] for k in keep}
+
+
+def sponza_job(sponza, steps: list, runs: list) -> dict:
+    """launch.render_job's job for Sponza as load_sponza's renderer holds
+    it: the opaque part bucketed, the environment at the engine's sizes,
+    the full-budget ESM maps from the first frame."""
+    from vqengine_tpu_torch.render import graph
+    from vqengine_tpu_torch.render.scene_buffers import split_transparent
+    opaque, transparent = split_transparent(sponza.buffers)
+    return dict(scene=graph.scene_fields_numpy(opaque),
+                scene_t=(graph.scene_fields_numpy(transparent)
+                         if transparent is not None else None),
+                env=dict(equirect=sponza.equirect), textures=None,
+                slots_used=graph.slots_used_of(sponza.buffers.materials),
+                shadow_dims=graph.SHADOW_DIMS, width=W, height=H,
+                steps=steps, runs=runs)
+
+
+def sweep_consts_numpy(sponza, n: int, start: int = 0) -> list:
+    """Frames start .. start + n - 1 of (g)'s yaw sweep as numpy frame
+    constants, each frame's prev_view_proj the one before's."""
+    from vqengine_tpu_torch.render.renderer import frame_constants_numpy
+    cam = sponza.cameras[0]
+    base_yaw, out, prev = cam.yaw, [], None
+    for i in range(start, start + n):
+        sweep_camera(cam, i, base_yaw)
+        c = frame_constants_numpy(sponza.buffers, cam, sponza.lights,
+                                  prev_view_proj=prev)
+        out.append(c)
+        prev = c["view_proj"]
+    cam.yaw = base_yaw
+    return out
+
+
+def single_card_frames(renderer, consts_np: list, maps, flags: dict) -> list:
+    """The single-card frames of these constants, the SSR history carried
+    -> [ldr on the CPU]."""
+    from vqengine_tpu_torch.render import graph
+    out, hist = [], None
+    for c in consts_np:
+        o = renderer.render(graph.frame_constants_from_numpy(c, renderer.device),
+                            W, H, shadow_maps=maps, ssr_history=hist, **flags)
+        if int(o["overflow"].sum()):
+            fail(f"(l) single-card frame overflow {o['overflow'].tolist()}")
+        hist = o.get("ssr_history")
+        out.append(o["ldr"].cpu())
+    return out
+
+
+def check_ranks(label: str, results: list, run: str) -> dict:
+    """Print and check every rank's run: overflow 0 in every band, no plain
+    version on CUDA tensors, its first frame's launches held against the
+    plain versions -> the run's launches summed over the ranks."""
+    total: dict = {}
+    for i, r in enumerate(results):
+        res = r["runs"][run]
+        tag = f"[multigpu] {label}, rank {i} (dp {r['dp_index']}, band {r['band']})"
+        if any(v for frame in res["overflow"] for row in frame for v in row):
+            fail(f"{tag}: overflow {res['overflow']}")
+        if max(res["plain"].values()) != 0:
+            fail(f"{tag}: plain versions ran on CUDA tensors: {res['plain']}")
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+        ms = res["ms"]
+        peak = ("" if res["peak_mib"] is None
+                else f"; peak device memory {res['peak_mib']:.1f} MiB")
+        say(f"{tag}: {len(ms)} frames, overflow 0 in the band; ms/frame "
+            f"per step {[round(v, 3) for v in ms]} (CUDA events around each "
+            f"step, collectives and host copies included){peak}; launches "
+            f"{res['launches']}; first frame's launches held against their "
+            f"plain versions {res['checked'] or 'none (not checked)'}")
+    return total
+
+
+def frame_bars(label: str, got: torch.Tensor, want: torch.Tensor,
+               seams: bool) -> None:
+    """Hold a gathered frame against the single-card one at the reference's
+    bars; print each figure beside its bar."""
+    d = (got.float() - want.float()).abs()
+    if seams:
+        mean = float(d.mean())
+        p99 = float(torch.quantile(d.flatten(), 0.99))
+        say(f"[multigpu] {label}: |ldr - single card| mean {mean:.6f} (bar "
+            f"{SEAM_MEAN}), 99th percentile {p99:.6f} (bar {SEAM_P99}), max "
+            f"{float(d.max()):.6f}")
+        if not (mean < SEAM_MEAN and p99 < SEAM_P99):
+            fail(f"{label}: mean {mean} / p99 {p99} past the bars")
+    else:
+        px = d.amax(dim=-1)
+        share = float((px > EDGE_BAD).float().mean())
+        mx = float(px.max())
+        say(f"[multigpu] {label}: pixels more than {EDGE_BAD} apart "
+            f"{share:.6f} of the frame (bar {EDGE_SHARE}), max {mx:.6f} (bar "
+            f"{EDGE_MAX})")
+        if not (share <= EDGE_SHARE and mx < EDGE_MAX):
+            fail(f"{label}: share {share} / max {mx} past the bars")
+
+
+def check_replicas(label: str, results: list, renderer, maps) -> None:
+    """The ranks' environment tables and shadow maps, each built by the
+    rank, bitwise equal across the ranks and to the single-card
+    renderer's."""
+    from vqengine_tpu_torch.parallel import launch
+    want = {f"shadow.{k}": launch.digest(v) for k, v in maps.items()}
+    env = renderer.env
+    for name in ("equirect", "diffuse_cube", "brdf_lut", "sh_irradiance",
+                 "brdf_poly"):
+        want[f"env.{name}"] = launch.digest(getattr(env, name))
+    for m, t in enumerate(env.specular_mips):
+        want[f"env.specular_mip{m}"] = launch.digest(t)
+    for i, r in enumerate(results):
+        if r["digests"] != want:
+            bad = sorted(k for k in want if r["digests"].get(k) != want[k])
+            fail(f"{label}: rank {i}'s replicated tables differ: {bad}")
+        pre = r.get("precompute_checked", {})
+        if pre.get("raster_vis", (0,))[0] != 8:
+            fail(f"{label}: rank {i}'s precompute checked {pre}")
+    say(f"[multigpu] {label}: every rank's environment tables and shadow "
+        f"maps ({len(want)} tables, built by each rank) bitwise equal across "
+        f"the ranks and to the single-card renderer's; each rank's 8 K2 "
+        f"precompute launches held against the plain version")
+
+
+def band_stage_times(card: str, sponza, renderer) -> None:
+    """What a band's binning, raster and MSAA edge resolve cost alone on the
+    card (the main process, no rank running), band by band of (l): the
+    band's rasters cover the frame's rows up to its end, and its edge
+    resolve compacts at the whole frame's capacity. Each against the same
+    stage of a band that covered its own rows only (band 0's raster) and
+    compacted at its share of the capacity."""
+    from vqengine_tpu_torch.ops import raster
+    from vqengine_tpu_torch.render import graph
+    c = renderer.build_frame_constants(sponza.buffers, sponza.cameras[0],
+                                       sponza.lights)
+    setup, extra = graph.geometry_setup_gbuf(renderer.scene, c, W, H)
+    whole = raster.bin_triangles(setup, W, H, extra=extra)
+    depth, tri_id, gbuf, cov = raster.rasterize_gbuf(whole, W, H, msaa=True)
+    attrs, mask = graph._attrs_from_gbuf(renderer.scene, c, depth, tri_id,
+                                         gbuf, W, H)
+    records = raster.pack_records(setup, extra)
+    obj = attrs["ids"][..., 0].to(torch.int32)
+    hdr = torch.rand((H, W, 3), generator=torch.Generator().manual_seed(3)
+                     ).to(depth.device)
+    bh = H // ML_SP
+    t_whole = time_ms(lambda: raster.rasterize_gbuf(raster.bin_triangles(
+        setup, W, H, extra=extra), W, H, msaa=True), 5)
+    say(f"[multigpu] (l) band stages alone on the card (one process, frame 0 "
+        f"of (g)'s sweep, CUDA events, mean of 5 after 2 warm-up, on {card}): "
+        f"the whole frame's binning and MSAA raster {t_whole:.4f} ms")
+    for band in range(ML_SP):
+        y0 = band * bh
+        end = raster.band_end(y0, bh, H)
+        t_r = time_ms(lambda: raster.rasterize_gbuf_band(raster.bin_triangles(
+            raster.rows_of_setup(setup, end), W, end, extra=extra), W, bh, y0,
+            H, msaa=True), 5)
+        idx = torch.arange(y0 - 1, y0 + bh + 1, device=depth.device).clamp(0, H - 1)
+        halo = tuple(t[idx] for t in (tri_id, depth, obj, mask))
+        rows = slice(y0, y0 + bh)
+        a = {"ids": attrs["ids"][rows], "records": records,
+             "wpos": attrs["wpos"][rows]}
+
+        def edges(cap):
+            return graph._msaa_edge_neighbor(
+                a, tri_id[rows], depth[rows], mask[rows],
+                cov[:, rows].contiguous(), hdr[rows], W, bh, halo=halo,
+                hdr_halo=hdr[idx], cap=cap, y_offset=y0)
+        cap_f, cap_b = graph.msaa_edge_cap(W, H), graph.msaa_edge_cap(W, bh)
+        t_ef, t_eb = time_ms(lambda: edges(cap_f), 5), time_ms(lambda: edges(cap_b), 5)
+        say(f"[multigpu] (l) band {band} (rows {y0}-{y0 + bh - 1}) alone: "
+            f"binning and MSAA raster of the frame's rows 0-{end - 1} "
+            f"{t_r:.4f} ms; neighbour edge resolve at the frame's capacity "
+            f"{cap_f} {t_ef:.4f} ms, at the band's share {cap_b} {t_eb:.4f} ms")
+
+
+def four_card_run(sponza, renderer, maps) -> dict:
+    """(l) on four cards: Sponza 1080p with (g)'s flags on dp 2 x sp 2 NCCL
+    ranks, one per card, two frames with the history carried; dp row 0
+    renders frames 0-1 of (g)'s sweep and dp row 1 frames 8-9 (each row's
+    views its own), each held against the single card's frames at the
+    reference's bars -> the ranks' launches."""
+    from vqengine_tpu_torch.parallel import launch
+    gf, sf = sharded_flags()
+    c2 = [sweep_consts_numpy(sponza, 2, start=8 * i) for i in range(2)]
+    steps4 = [[c2[0][k], c2[1][k]] for k in range(2)]
+    r4 = launch.run(launch.render_job, 2, 2, backend="nccl", device="cuda",
+                    timeout=480, job=sponza_job(sponza, steps4, [dict(
+                        name="full", flags=sf, steps=[0, 1], carry_ssr=True,
+                        gather=True, check=True)]))
+    got = check_ranks("(l) Sponza 1080p, dp 2 x sp 2, NCCL, one rank per "
+                      "card", r4, "full")
+    for i in range(2):
+        ref = single_card_frames(renderer, c2[i], maps, gf)
+        for f in range(2):
+            frame_bars(f"(l) 4 cards, view {i} (sweep frame {8 * i + f})",
+                       r4[0]["runs"]["full"]["frames"][f][0][i], ref[f], True)
+    return got
+
+
+def phase_multigpu(dev, card: str, sponza, renderer, st, rt) -> dict:
+    """(l) the engine's default frame (g), sharded: Sponza 1920x1080 on dp 1
+    x sp 3 gloo ranks that share cuda:0 (parallel/launch.py), two frames
+    with the history carried (the first's launches held against their plain
+    versions), ML_FRAMES timed frames, and two frames with SSAO and SSR
+    off; the gathered frames against the single-card frames at the
+    reference's bars. The translucent Sponza of (f) the same way, SSAO and
+    SSR off (the transparent layers' and the edge resolve's bands against
+    the single card's frame). The band stages alone on the card. Then the
+    dryrun scene (entry.dryrun_multigpu's) at
+    128x64 on dp 2 x sp 2: gloo ranks on the card against gloo ranks on the
+    CPU; NCCL with one rank on cuda:0; and where there are four cards, Sponza
+    on dp 2 x sp 2 over NCCL, one rank per card. -> the ranks' launches."""
+    from vqengine_tpu_torch import entry
+    from vqengine_tpu_torch.parallel import launch
+    from vqengine_tpu_torch.render import graph
+    gf, sf = sharded_flags()
+    n_steps = 2 + ML_FRAMES
+    consts = sweep_consts_numpy(sponza, n_steps)
+    steps = [[c] for c in consts]
+    off = dict(sf, enable_ssao=False, enable_ssr=False)
+    runs = [dict(name="full", flags=sf, steps=[0, 1], carry_ssr=True,
+                 gather=True, check=True),
+            dict(name="timed", flags=sf, steps=list(range(2, n_steps)),
+                 carry_ssr=True),
+            dict(name="off", flags=off, steps=[0, 1], gather=True)]
+    t0 = time.perf_counter()
+    res = launch.run(launch.render_job, 1, ML_SP, backend="gloo", device=dev,
+                     timeout=480, job=sponza_job(sponza, steps, runs))
+    wall = time.perf_counter() - t0
+    label = (f"(l) Sponza {W}x{H}, engine default frame, dp 1 x sp {ML_SP} "
+             f"gloo ranks sharing {dev}")
+    say(f"[multigpu] {label}: ranks spawned, built their scene, environment "
+        f"and ESM maps and rendered {2 + ML_FRAMES + 2} frames each in "
+        f"{wall:.1f} s (host clock, spawn included)")
+    maps = renderer.precompute_shadow_maps(
+        graph.frame_constants_from_numpy(consts[0], dev))
+    check_replicas(label, res, renderer, maps)
+    launches = {}
+    for run in ("full", "timed", "off"):
+        got = check_ranks(f"{label}, {run}", res, run)
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    for r in res:
+        chk = r["runs"]["full"]["checked"]
+        if chk.get("raster_gbuf_msaa", (0,))[0] != 1 or chk.get("palette", (0,))[0] < 1:
+            fail(f"{label}: first frame's checked launches {chk}")
+    timed = [r["runs"]["timed"] for r in res]
+    for i, t in enumerate(timed):
+        if (t["launches"]["raster_gbuf_msaa"] != ML_FRAMES
+                or t["launches"]["palette"] <= 0 or t["launches"]["raster_vis"]):
+            fail(f"{label}: rank {i} timed launches {t['launches']}")
+        ms = sorted(t["ms"])
+        say(f"[multigpu] (l) rank {i} (band {res[i]['band']}): ms/frame "
+            f"(CUDA events) mean {sum(ms) / len(ms):.3f}, median "
+            f"{ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f}; peak "
+            f"device memory {t['peak_mib']} MiB, on {card}; the "
+            f"{ML_SP} ranks time-slice one card, so this is no scaling "
+            f"figure")
+    ref_full = single_card_frames(renderer, consts[:2], maps, gf)
+    ref_off = single_card_frames(renderer, consts[:2], maps,
+                                 dict(gf, enable_ssao=False, enable_ssr=False))
+    for f in range(2):
+        frame_bars(f"{label}, frame {f}, SSAO and SSR on",
+                   res[0]["runs"]["full"]["frames"][f][0][0], ref_full[f], True)
+        frame_bars(f"{label}, frame {f}, SSAO and SSR off (the MSAA edge "
+                   f"resolve)", res[0]["runs"]["off"]["frames"][f][0][0],
+                   ref_off[f], False)
+
+    # the translucent Sponza of (f): two transparent layers (K1-bounded)
+    # in every band, held with the edge resolve's bars
+    t_consts = sweep_consts_numpy(st, 2)
+    t_res = launch.run(launch.render_job, 1, ML_SP, backend="gloo", device=dev,
+                       timeout=300, job=sponza_job(st, [[c] for c in t_consts], [
+                           dict(name="translucent", flags=off, steps=[0, 1],
+                                gather=True, check=True)]))
+    t_label = (f"(l) translucent Sponza (f) {W}x{H}, dp 1 x sp {ML_SP} gloo "
+               f"ranks sharing {dev}, SSAO and SSR off")
+    t_maps = rt.precompute_shadow_maps(
+        graph.frame_constants_from_numpy(t_consts[0], dev))
+    check_replicas(t_label, t_res, rt, t_maps)
+    got = check_ranks(t_label, t_res, "translucent")
+    launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    for i, r in enumerate(t_res):
+        run_ = r["runs"]["translucent"]
+        if (run_["checked"].get("raster_gbuf_bounded", (0,))[0] != 2
+                or run_["launches"]["raster_gbuf_bounded"] != 2):
+            fail(f"{t_label}: rank {i}'s transparent layers {run_['checked']} "
+                 f"{run_['launches']}")
+    ref_t = single_card_frames(rt, t_consts, t_maps,
+                               dict(gf, enable_ssao=False, enable_ssr=False))
+    for f in range(2):
+        frame_bars(f"{t_label}, frame {f}",
+                   t_res[0]["runs"]["translucent"]["frames"][f][0][0],
+                   ref_t[f], False)
+    band_stage_times(card, sponza, renderer)
+
+    # the dryrun scene at 128x64, dp 2 x sp 2: the card's ranks against the
+    # CPU's
+    job = entry.dryrun_job(2, 2)
+    g_res = launch.run(launch.render_job, 2, 2, backend="gloo", device=dev,
+                       timeout=300, job=job)
+    got = check_ranks("dryrun 128x64, dp 2 x sp 2, gloo on the card",
+                      g_res, "dryrun")
+    launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    job["runs"][0]["check"] = False
+    c_res = launch.run(launch.render_job, 2, 2, backend="gloo", device="cpu",
+                       timeout=300, job=job)
+    g_run, c_run = g_res[0]["runs"]["dryrun"], c_res[0]["runs"]["dryrun"]
+    for f, (a, b) in enumerate(zip(g_run["frames"], c_run["frames"])):
+        errs = {"ldr": float((a[0] - b[0]).abs().max()),
+                "ao": float((g_run["ao"][f] - c_run["ao"][f]).abs().max()),
+                "motion": float((g_run["motion"][f]
+                                 - c_run["motion"][f]).abs().max()),
+                "SSR history": float((a[2] - b[2]).abs().max())}
+        bars = {"ldr": ENTRY_TOL, "ao": AO_TOL, "motion": MOTION_TOL,
+                "SSR history": HIST_TOL}
+        say(f"[multigpu] dryrun 128x64, dp 2 x sp 2, frame {f}: card ranks vs "
+            f"CPU ranks, max |diff|: "
+            + ", ".join(f"{k} {v:.3e} (bar {bars[k]})" for k, v in errs.items())
+            + f"; depth {float((a[1] - b[1]).abs().max()):.3e}")
+        if any(errs[k] > bars[k] for k in errs):
+            fail(f"dryrun card vs CPU frame {f}: {errs}")
+
+    # NCCL: one rank on cuda:0 (its init and the all_gathers on device
+    # tensors); four cards: Sponza on dp 2 x sp 2, one rank per card
+    n_res = launch.run(launch.render_job, 1, 1, backend="nccl", device="cuda",
+                       timeout=240, job=entry.dryrun_job(1, 1))
+    got = check_ranks("dryrun 128x32, dp 1 x sp 1, NCCL on cuda:0", n_res,
+                      "dryrun")
+    launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        got = four_card_run(sponza, renderer, maps)
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    else:
+        say(f"[multigpu] the four-card NCCL run (Sponza 1080p, dp 2 x sp 2, "
+            f"one rank per card) was not run: torch.cuda.device_count() is "
+            f"{cards}")
+    say(f"[multigpu] every rank above found neither jax nor vqengine_tpu in "
+        f"its sys.modules before it exited (parallel/launch.py)")
+    say(f"[multigpu] launches of the ranks' runs (first frames' checked "
+        f"launches excluded): {launches}")
+    return launches
+
+
 def check_imports() -> None:
     bad = sorted(m for m in sys.modules if m in ("jax", "vqengine_tpu")
                  or m.startswith(("jax.", "vqengine_tpu.")))
@@ -2945,8 +3267,10 @@ def main() -> None:
     li, stresstest = timed("main path (i)", phase_stresstest_path, dev, card)
     lj, terrain = timed("main path (j)", phase_terrain_path, dev, card)
     lk = timed("main path (k)", phase_engine_path, dev, card)
+    ll = timed("multi-GPU (l)", phase_multigpu, dev, card, sponza, renderer,
+               st, rt)
     launches = {k: launches[k] + lt[k] + lg[k] + lh[k] + li[k] + lj[k] + lk[k]
-                for k in launches}
+                + ll.get(k, 0) for k in launches}
     if "--profile" in sys.argv[1:]:
         # timed before the traced frames, as phase_profile times its stages
         phase_profile_transparent(st, rt)

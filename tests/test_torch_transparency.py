@@ -438,14 +438,20 @@ def test_blend_over_opaque():
 
 
 @pytest.mark.parametrize("kw", [dict(env=object()), dict(textures="checkerboard"),
-                                dict(full_height=2 * H), dict(y_offset=H)])
+                                dict(full_height=2 * H),
+                                dict(full_height=2 * H, y_offset=H)])
 def test_transparent_pass_unported_raise(kw):
-    """Multichip bands of the reference's transparent_pass are a later
-    slice: they raise. The environment term is ported (IBL): with a small
+    """Features that raised while they were a later slice, each now held
+    to the reference's behaviour. The environment term (IBL): with a small
     procedural sky's maps the layers are lit by it; so are textures (a
     16^2 checkerboard in the glass's diffuse slot): each changes the
     glass's pixels and no others (tests/test_torch_ibl.py and
-    tests/test_torch_texture.py hold them against the reference)."""
+    tests/test_torch_texture.py hold them against the reference). The
+    multi-GPU slice's screen bands (full_height, y_offset: the upper and
+    the lower half of a 2H-tall frame), which the port rasters at the
+    frame's rows: the band's composite within HDR_TOL of the band's rows
+    of the reference's transparent_pass over the whole 2H-tall frame, op
+    by op."""
     _, pt, pc = port_scene("glass_over_floor")
     hdr = torch.zeros((H, W, 3))
     if "textures" in kw:
@@ -477,5 +483,14 @@ def test_transparent_pass_unported_raise(kw):
         assert not torch.equal(lit[glass], bare[glass])
         assert torch.equal(lit[~glass], bare[~glass])
         return
-    with pytest.raises(NotImplementedError):
-        tg.transparent_pass(pt, pc, hdr, torch.ones((H, W)), W, H, **kw)
+    _, jt_, jc = jax_scene("glass_over_floor")
+    base = np.random.default_rng(4).uniform(0, 1, (2 * H, W, 3)).astype(np.float32)
+    rows = slice(kw.get("y_offset", 0), kw.get("y_offset", 0) + H)
+    out = tg.transparent_pass(pt, pc, torch.from_numpy(base[rows]),
+                              torch.ones((H, W)), W, H, **kw)
+    with compiled_rasters():
+        ref = jg.transparent_pass(jt_, jc, jax.numpy.asarray(base),
+                                  jax.numpy.ones((2 * H, W)), W, 2 * H)
+    assert_close(out, np.asarray(ref)[rows], HDR_TOL, str(kw))
+    assert not np.array_equal(out.numpy(), base[rows]), "no glass in the band"
+    assert bool(torch.isfinite(out).all())

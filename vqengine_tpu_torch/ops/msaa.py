@@ -68,27 +68,33 @@ def detect_edges(tri_id: torch.Tensor, depth: torch.Tensor,
 def resolve_secondary(records: torch.Tensor, tri_id: torch.Tensor,
                       depth: torch.Tensor, object_id: torch.Tensor,
                       mask: torch.Tensor, cov_s: torch.Tensor, cap: int,
-                      pad: int = 0, telemetry: dict | None = None):
+                      pad: int = 0, telemetry: dict | None = None,
+                      choose=None, y_offset: int = 0):
     """Per-sample visibility at edge pixels.
 
     records [T, R] packed records (raster.pack_records); tri_id, depth,
     object_id, mask [H, W]; cov_s [4, H, W] the kernel's per-sample sticky
     coverage. pad > 0: tri_id/depth/object_id/mask carry `pad` halo rows at
     top and bottom (a band of a larger frame); cov_s and the returned
-    indices stay interior.
+    indices stay interior; y_offset: the band's first row in the frame
+    whose records these are (they are evaluated at frame rows).
 
     -> (idx [cap] int64 flat pixel indices, live [cap] bool, sec_id [cap]
     int32 the secondary winner (own id where none), n_sec [cap] f32 the
     samples it wins (0..4), px, py [cap] pixel centers). A sample whose
     best candidate is the own winner, or that no candidate covers, stays
-    with the primary. telemetry gets "msaa_edges" (demand at the chosen
-    rung / cap) and "msaa_edges_demand" (base-rung demand / cap)."""
+    with the primary; py is at the frame's row. telemetry gets
+    "msaa_edges" (demand at the chosen rung / cap) and "msaa_edges_demand"
+    (base-rung demand / cap). choose, when given, picks the edge-score
+    threshold from the score [H, W] in place of the ladder's rung that
+    fits cap (the multi-GPU bands choose the whole frame's rung)."""
     def interior(img):
         return img[pad:img.shape[0] - pad] if pad else img
 
     h, w = interior(tri_id).shape
     score = interior(detect_edge_score(tri_id, depth, object_id, mask))
-    thr, _ = sparse.adaptive_threshold(score, EDGE_THRS, cap, block=8)
+    thr = (sparse.adaptive_threshold(score, EDGE_THRS, cap, block=8)[0]
+           if choose is None else choose(score))
     edge = score > thr
     idx, count, demand = sparse.compact_indices(edge, cap, block=8)
     if telemetry is not None:
@@ -107,7 +113,8 @@ def resolve_secondary(records: torch.Tensor, tri_id: torch.Tensor,
         .reshape(cap, cand_ids.shape[1], 13)
 
     px = (idx % w).to(torch.float32) + 0.5
-    py = torch.div(idx, w, rounding_mode="floor").to(torch.float32) + 0.5
+    row = torch.div(idx, w, rounding_mode="floor")
+    py = (row + y_offset if y_offset else row).to(torch.float32) + 0.5
     covs = torch.stack([cov_s[s].reshape(-1)[idx] for s in range(cov_s.shape[0])])
     n_sec = torch.zeros_like(px)
     sec_z = torch.full_like(px, 2.0)

@@ -212,9 +212,15 @@ class TriangleSetup:
 
 
 def setup_triangles(c: torch.Tensor, width: int, height: int,
-                    tri_mask: torch.Tensor | None = None) -> TriangleSetup:
+                    tri_mask: torch.Tensor | None = None,
+                    full_height: int | None = None,
+                    y_offset: int = 0) -> TriangleSetup:
     """Clip corners [T, 3, 4] -> TriangleSetup. Mirrors the reference's
-    arithmetic operation for operation."""
+    arithmetic operation for operation. A screen band (parallel/
+    multichip.py): `height` is the band's, full_height the frame's and
+    y_offset the band's first row; the viewport shifts by y_offset * w
+    (linear in w, so the edge and depth planes stay exact)."""
+    fh = height if full_height is None else full_height
     x = [c[:, i, 0] for i in range(3)]
     y = [c[:, i, 1] for i in range(3)]
     z = [c[:, i, 2] for i in range(3)]
@@ -223,7 +229,9 @@ def setup_triangles(c: torch.Tensor, width: int, height: int,
     for i in range(3):
         si = 1.0 / torch.clamp(w[i].abs(), min=1e-9)
         xsi = (x[i] * 0.5 + w[i] * 0.5) * width
-        ysi = (-y[i] * 0.5 + w[i] * 0.5) * height
+        ysi = (-y[i] * 0.5 + w[i] * 0.5) * fh
+        if y_offset:
+            ysi = ysi - y_offset * w[i]
         s.append(si)
         xs_u.append(xsi)
         ys_u.append(ysi)
@@ -309,6 +317,55 @@ def setup_triangles(c: torch.Tensor, width: int, height: int,
                              tile_of(ymax, TILE_H, tiles_y)], dim=1),
         big=big,
     )
+
+
+def band_end(y_offset: int, band_height: int, full_height: int) -> int:
+    """The frame rows [0, end) a screen band's raster covers (parallel/
+    multichip.py): the band's last row rounded up to whole tiles, at most
+    the frame's."""
+    return min(full_height, cdiv(y_offset + band_height, TILE_H) * TILE_H)
+
+
+def rows_of_setup(setup: TriangleSetup, rows: int) -> TriangleSetup:
+    """The first `rows` rows of a frame's TriangleSetup as a setup of their
+    own: the planes stay the frame's, and the frame's tile rows, cut to
+    those rows, bound the tile spans; a triangle whose span starts below
+    them is invalid there. A raster of those rows is the frame's bit for
+    bit (tile origins, planes and each tile's records the frame's)."""
+    tiles_y = cdiv(rows, TILE_H)
+    valid = setup.valid & (setup.tile_lo[:, 1] < tiles_y)
+    return TriangleSetup(
+        edges9=setup.edges9, zc=setup.zc, vert_scale=setup.vert_scale,
+        valid=valid,
+        tile_lo=torch.stack([setup.tile_lo[:, 0],
+                             setup.tile_lo[:, 1].clamp(max=tiles_y - 1)], dim=1),
+        tile_hi=torch.stack([setup.tile_hi[:, 0],
+                             setup.tile_hi[:, 1].clamp(max=tiles_y - 1)], dim=1),
+        big=setup.big)
+
+
+def rasterize_gbuf_band(binned: BinnedTriangles, width: int,
+                        band_height: int, y_offset: int, full_height: int,
+                        msaa: bool = False, zbound=None):
+    """rasterize_gbuf for a screen band, the rows [y_offset, y_offset +
+    band_height) of a full_height-tall frame: binned is the frame's
+    binning of its rows [0, band_end(...)) (bin_triangles on
+    rows_of_setup), rastered on those rows and cut to the band's, which
+    are then the frame's bit for bit. zbound windows are the band's
+    [band_height, W]; the rows above and below get the empty window
+    (2, 2). A whole frame (y_offset 0, band_height full_height) is
+    rasterize_gbuf's."""
+    end = band_end(y_offset, band_height, full_height)
+    if end == band_height:
+        return rasterize_gbuf(binned, width, end, msaa=msaa, zbound=zbound)
+    if zbound is not None:
+        z = zbound[0]
+        above = z.new_full((y_offset, width), 2.0)
+        below = z.new_full((end - y_offset - band_height, width), 2.0)
+        zbound = tuple(torch.cat([above, b, below]) for b in zbound)
+    return tuple(t.narrow(t.ndim - 2, y_offset, band_height).contiguous()
+                 for t in rasterize_gbuf(binned, width, end, msaa=msaa,
+                                         zbound=zbound))
 
 
 def killed_record(rows: int, device: torch.device) -> torch.Tensor:

@@ -7,8 +7,9 @@ refinement on ops/sparse.py), the depth-aware blur, and the depth-guided
 bilateral upsample.
 
 The reference's row-fetch gather (gather_scalar_rows4, a TPU layout trick
-that leaves values unchanged) is a plain gather here. The screen-band
-arguments (y_offset, full_height) come with the multi-GPU slice.
+that leaves values unchanged) is a plain gather here. A screen band
+(parallel/multichip.py) passes y_offset and full_height: the view-space
+reconstruction, the aspect and the tap radius take the frame's geometry.
 
 Rounding follows the reference's CPU run op by op, so that every integer
 selection (the tap's pyramid level and texel) lands where the reference's
@@ -103,15 +104,17 @@ def _occlusion_sum(taps: np.ndarray, px, py, pos_v, nrm_v, radius_px_y,
                    zflat, zoffs, zshapes, w, h, geom) -> torch.Tensor:
     """Sum the spiral taps' occlusion for pixels of any shape: dense [H, W]
     planes, compacted [CAP] lists, or [4, H/2, W/2] phase stacks with taps
-    [4, T, 2] (one pattern per phase). geom = (tan_half, aspect,
-    radius_world)."""
-    tan_half, aspect, radius_world = geom
+    [4, T, 2] (one pattern per phase). geom = (tan_half, aspect, y_offset,
+    full_height, radius_world): a band's rows sit at y_offset of a
+    full_height-tall frame."""
+    tan_half, aspect, y_offset, full_height, radius_world = geom
     dev = px.device
     occlusion = torch.zeros(px.shape, dtype=torch.float32, device=dev)
     n_mips = len(zshapes)
     per_phase = taps.ndim == 3
     tt = torch.from_numpy(taps).to(dev) if per_phase else None
-    w_t, h_t, r_t = _scalar(w, dev), _scalar(h, dev), _scalar(radius_world, dev)
+    w_t, h_t = _scalar(w, dev), _scalar(full_height, dev)
+    r_t = _scalar(radius_world, dev)
     px_, py_, pz_ = pos_v.unbind(-1)
     nx, ny, nz = nrm_v.unbind(-1)
     for t in range(taps.shape[-2]):
@@ -135,7 +138,7 @@ def _occlusion_sum(taps: np.ndarray, px, py, pos_v, nrm_v, radius_px_y,
         z_tap = _gather(zflat, idx)
         # view-space sample position
         s_ndc_x = (sx / w_t) * 2.0 - 1.0
-        s_ndc_y = 1.0 - (sy / h_t) * 2.0
+        s_ndc_y = 1.0 - ((sy + float(y_offset) if y_offset else sy) / h_t) * 2.0
         ddx = s_ndc_x * tan_half * aspect * z_tap - px_
         ddy = s_ndc_y * tan_half * z_tap - py_
         ddz = z_tap - pz_
@@ -190,11 +193,16 @@ def _pixel_centers(h: int, w: int, dev):
     return px, py
 
 
-def ndc_axes(h: int, w: int, dev):
+def ndc_axes(h: int, w: int, dev, y_offset: int = 0,
+             full_height: int | None = None):
     """(ndc_x [W], ndc_y [H]) of the pixel centers, divided as the reference
-    divides them (true division)."""
+    divides them (true division); a band's rows start at y_offset of a
+    full_height-tall frame."""
     ndc_x = _div(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, w) * 2.0 - 1.0
-    ndc_y = 1.0 - _div(torch.arange(h, dtype=torch.float32, device=dev) + 0.5, h) * 2.0
+    rows = torch.arange(h, dtype=torch.float32, device=dev)
+    if y_offset:
+        rows = rows + y_offset
+    ndc_y = 1.0 - _div(rows + 0.5, h if full_height is None else full_height) * 2.0
     return ndc_x, ndc_y
 
 
@@ -207,7 +215,8 @@ def ssao(depth: torch.Tensor, normals: torch.Tensor, view_proj_info: dict,
          adaptive_frac: int = 4,
          deinterleave: bool = False,
          telemetry: dict | None = None, *,
-         tan_half_fov: float | None = None) -> torch.Tensor:
+         tan_half_fov: float | None = None, y_offset: int = 0,
+         full_height: int | None = None) -> torch.Tensor:
     """-> AO [H, W] in [0, 1] (1 = unoccluded).
 
     depth: z_ndc [H, W]; normals: world normals [H, W, 3]; view_proj_info:
@@ -216,23 +225,27 @@ def ssao(depth: torch.Tensor, normals: torch.Tensor, view_proj_info: dict,
     contrast ranks highest (at most one in adaptive_frac, compacted);
     deinterleave generates four phase-offset quarter-resolution layers
     with their own spirals. tan_half_fov: tan(fov_y / 2) when the caller
-    has it (tan_half), which spares a device sync."""
+    has it (tan_half), which spares a device sync. A screen band: depth is
+    the slab whose first row is row y_offset (negative for a halo above the
+    frame) of a full_height-tall frame; the deinterleave needs even band
+    heights and offsets, so that a row's parity is its frame row's."""
     h, w = depth.shape
+    fh = h if full_height is None else full_height
     dev = depth.device
     near, far = view_proj_info["near"], view_proj_info["far"]
     view = view_proj_info["view"]
     th = tan_half(view_proj_info["fov_y"]) if tan_half_fov is None else tan_half_fov
 
     zv = view_depth_from_ndc(depth, near, far)
-    aspect = w / h
-    ndc_x, ndc_y = ndc_axes(h, w, dev)
+    aspect = w / fh
+    ndc_x, ndc_y = ndc_axes(h, w, dev, y_offset, fh)
     vx = ndc_x[None, :] * th * aspect * zv
     vy = ndc_y[:, None] * th * zv
     pos_v = torch.stack([vx, vy, zv], dim=-1)
     nrm_v = view_normals(view, normals)
 
     # screen-space tap radius: the projected world radius, clamped
-    radius_px_y = torch.clamp(_div(radius_world, zv * th * 2.0) * h, 2.0, 96.0)
+    radius_px_y = torch.clamp(_div(radius_world, zv * th * 2.0) * fh, 2.0, 96.0)
 
     # the depth pyramid (CACAO's depth prepare) on a 2x-down base, flattened
     # so that each tap is one gather at a level-selected index
@@ -245,7 +258,7 @@ def ssao(depth: torch.Tensor, normals: torch.Tensor, view_proj_info: dict,
         off += zm.shape[0] * zm.shape[1]
     zflat = torch.cat([zm.reshape(-1) for zm in zmips])
 
-    geom = (th, aspect, radius_world)
+    geom = (th, aspect, y_offset, fh, radius_world)
     px, py = _pixel_centers(h, w, dev)
 
     if deinterleave and h >= 2 and w >= 2:

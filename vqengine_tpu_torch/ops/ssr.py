@@ -12,7 +12,9 @@ shadow.norm3, the three-term dots left to right, tan through libm's tanf
 (ssao.tan_half), true division where the reference divides by a Python
 number (raster.div_true), and float-to-int conversions clamped before they
 truncate (_trunc_index: XLA saturates where a cast would be undefined).
-The band arguments (y_offset, full_height) come with the multi-GPU slice.
+A screen band (parallel/multichip.py) passes the denoiser y_offset and
+full_height: it reprojects at the frame's rows into the gathered whole
+history.
 """
 from __future__ import annotations
 
@@ -297,16 +299,21 @@ def init_history(h: int, w: int, dtype=torch.float32,
     return torch.zeros((h, w, HISTORY_CHANNELS), dtype=dtype, device=device)
 
 
-def reproject_index(motion: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def reproject_index(motion: torch.Tensor, h: int, w: int, y_offset: int = 0,
+                    full_height: int | None = None) -> torch.Tensor:
     """Flat index [H, W] of the history texel under each pixel's previous
     position: motion is the NDC delta (curr - prev), so prev px = curr -
-    motion * half the frame."""
+    motion * half the frame. A band's rows sit at y_offset of a
+    full_height-tall frame, whose whole history the index addresses."""
     dev = motion.device
+    hf = h if full_height is None else full_height
     ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5
+    if y_offset:
+        ys = ys + y_offset
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5
     px = xs - motion[..., 0] * (w * 0.5)
-    py = ys + motion[..., 1] * (h * 0.5)
-    return _trunc_index(py, h) * w + _trunc_index(px, w)
+    py = ys + motion[..., 1] * (hf * 0.5)
+    return _trunc_index(py, hf) * w + _trunc_index(px, w)
 
 
 def blur_level(roughness: torch.Tensor, hist: torch.Tensor | None,
@@ -325,14 +332,19 @@ def denoise_reflections(refl: torch.Tensor, conf: torch.Tensor,
                         history: torch.Tensor | None = None,
                         motion: torch.Tensor | None = None,
                         temporal_alpha: float = 0.7,
-                        depth: torch.Tensor | None = None):
+                        depth: torch.Tensor | None = None,
+                        y_offset: int = 0, full_height: int | None = None):
     """DNSR-style prefilter + temporal resolve -> (denoised [H, W, 3],
     new_history [H, W, 7]): a roughness-scaled blur (mip selection, widened
     by the tracked temporal variance); the history reprojected by motion,
     clamped to the current 3x3 color bounds and to its own tracked
     luminance distribution, reset where depth or luminance disagree, and
     blended by a sample-count-ramped weight scaled by hit confidence.
-    Histories with fewer than 7 channels zero-pad (sample count 0)."""
+    Histories with fewer than 7 channels zero-pad (sample count 0).
+    A screen band (full_height given): refl, conf and the rest are the
+    band's rows from frame row y_offset, history the whole frame's
+    (gathered: a reprojection can land in any band); the new history is
+    the band's."""
     h, w = refl.shape[:2]
     dev = refl.device
     mips = ffx.spd_mip_pyramid(refl, num_mips=4, reduce="mean")
@@ -348,7 +360,12 @@ def denoise_reflections(refl: torch.Tensor, conf: torch.Tensor,
                 dtype=history.dtype, device=history.device)], dim=-1)
         if motion is not None:
             hist = history.reshape(-1, history.shape[-1])[
-                reproject_index(motion, h, w).long()]
+                reproject_index(motion, h, w, y_offset, full_height).long()]
+        elif full_height is not None:
+            # the reference's dynamic_slice clamps its start; a band's
+            # start is always in range
+            assert 0 <= y_offset <= history.shape[0] - h, (y_offset, h)
+            hist = history.narrow(0, y_offset, h)
         else:
             hist = history
 

@@ -496,15 +496,15 @@ def tex_num_levels(textures) -> int:
 
 def mip_jitter(h: int, w: int, y_offset=0, device=None) -> torch.Tensor:
     """Per-pixel R2 low-discrepancy jitter in [0, 1) for stochastic
-    trilinear, as the reference computes it in f32. y_offset (screen
-    bands) is the multi-GPU slice's and must be 0 here."""
-    if not (isinstance(y_offset, int) and y_offset == 0):
-        raise NotImplementedError("mip_jitter: y_offset (screen bands) is not "
-                                  "ported yet")
+    trilinear, as the reference computes it in f32. y_offset shifts the
+    pattern to a screen band's frame rows, so that the bands dither as the
+    whole frame does."""
     g = 1.32471795724474602596  # plastic constant
     a1, a2 = float(np.float32(1.0 / g)), float(np.float32(1.0 / (g * g)))
     xs = torch.arange(w, dtype=torch.float32, device=device)[None, :]
     ys = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+    if y_offset:
+        ys = ys + y_offset
     return torch.remainder(xs * a1 + ys * a2, 1.0)
 
 

@@ -9,8 +9,14 @@ maps' load-time build.
 
 PyTorch runs eagerly, so a render graph here is a plain function of
 (DeviceScene, FrameConstants) tensors on one device; nothing is traced or
-compiled per resolution. Features of later slices raise
-NotImplementedError instead of being skipped.
+compiled per resolution. The functions that a screen band of the
+multi-GPU renderer calls (parallel/multichip.py) take the reference's band
+arguments: full_height and y_offset place the band's rows in the frame,
+halo and hdr_halo carry its neighbours' seam rows. Where the reference
+shifts a band's vertices (raster.setup_triangles' y_offset), a band here
+rasters the frame's rows up to its end with the frame's setup and keeps
+its own (raster.rasterize_gbuf_band), and its MSAA records are the
+frame's, evaluated at frame rows: its rows are then the frame's.
 """
 from __future__ import annotations
 
@@ -354,22 +360,26 @@ def _unproject(ndc_x: torch.Tensor, ndc_y: torch.Tensor, depth: torch.Tensor,
 
 
 def world_pos_from_depth(depth: torch.Tensor, consts: FrameConstants,
-                         width: int, height: int) -> torch.Tensor:
-    """World position from the depth buffer through inv_view_proj."""
-    dev = depth.device
-    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width * 2.0 - 1.0
-    py = 1.0 - (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height * 2.0
+                         width: int, height: int,
+                         full_height: int | None = None,
+                         y_offset: int = 0) -> torch.Tensor:
+    """World position from the depth buffer through inv_view_proj; a
+    screen band's rows sit at y_offset of a full_height-tall frame."""
+    px, py = ssao_ops.ndc_axes(height, width, depth.device, y_offset,
+                               full_height)
     return _unproject(px[None, :].expand(height, width),
                       py[:, None].expand(height, width), depth,
                       consts.inv_view_proj)
 
 
 def _attrs_from_gbuf(scene: DeviceScene, consts: FrameConstants,
-                     depth, tri_id, gbuf, width: int, height: int):
+                     depth, tri_id, gbuf, width: int, height: int,
+                     full_height: int | None = None, y_offset: int = 0):
     """The raster kernel's G-buffer channels -> the attribute dict shading
-    consumes."""
+    consumes (full_height and y_offset place a screen band's rows)."""
     mask = tri_id != raster.BG_ID
-    wpos = world_pos_from_depth(depth, consts, width, height)
+    wpos = world_pos_from_depth(depth, consts, width, height, full_height,
+                                y_offset)
     return {
         "wpos": torch.where(mask[..., None], wpos, torch.zeros_like(wpos)),
         "wnrm": gbuf[0:3].permute(1, 2, 0),
@@ -914,30 +924,44 @@ def _msaa_edge_neighbor(attrs: dict, tri_id: torch.Tensor,
                         depth: torch.Tensor, mask: torch.Tensor,
                         cov_s: torch.Tensor, hdr: torch.Tensor,
                         width: int, height: int,
-                        telemetry: dict | None = None):
+                        telemetry: dict | None = None,
+                        halo: tuple | None = None,
+                        hdr_halo: torch.Tensor | None = None,
+                        cap: int | None = None, choose=None,
+                        y_offset: int = 0):
     """The neighbor-color MSAA edge resolve (the default mode): exact
     per-sample visibility from msaa.resolve_secondary, and the secondary
     surface's color taken from the first 4-neighbor pixel whose primary
     winner is that surface (already shaded one pixel away), matched on the
     compacted lanes. -> (w_sec [H, W] the secondary's sample weight,
-    sec_rgb [H, W, 3] its pre-weighted color)."""
-    cap = msaa_edge_cap(width, height)
+    sec_rgb [H, W, 3] its pre-weighted color). A screen band of a frame
+    (parallel/multichip.py) passes halo and hdr_halo, its (tri_id, depth,
+    object_id, mask) and hdr with one neighbour row above and below, the
+    frame's records and y_offset, its first row (the records are
+    evaluated at frame rows); the outputs stay the band's. cap (default
+    msaa_edge_cap) and choose (the edge threshold's choice,
+    msaa.resolve_secondary): a band resolves the whole frame's edge
+    set."""
+    cap = msaa_edge_cap(width, height) if cap is None else cap
     object_id = attrs["ids"][..., 0].to(torch.int32)
+    det = halo if halo is not None else (tri_id, depth, object_id, mask)
+    pad = 1 if halo is not None else 0
     idx, live, sec_id, n_sec, _, _ = msaa_ops.resolve_secondary(
-        attrs["records"], tri_id, depth, object_id, mask, cov_s, cap,
-        telemetry=telemetry)
-    tid_flat = tri_id.reshape(-1)
+        attrs["records"], det[0], det[1], det[2], det[3], cov_s, cap,
+        pad=pad, telemetry=telemetry, choose=choose, y_offset=y_offset)
+    tid_flat = det[0].reshape(-1)
+    hp = det[0].shape[0]               # the padded rows
     px_i = idx % width
-    py_i = torch.div(idx, width, rounding_mode="floor")
+    py_i = torch.div(idx, width, rounding_mode="floor") + pad
     sel = torch.zeros_like(idx)
     found = torch.zeros(idx.shape, dtype=torch.bool, device=idx.device)
     for dy, dx in msaa_ops.NEIGHBOR_OFFSETS:
-        nidx = ((py_i + dy).clamp(0, height - 1) * width
+        nidx = ((py_i + dy).clamp(0, hp - 1) * width
                 + (px_i + dx).clamp(0, width - 1))
         match = ~found & (tid_flat[nidx] == sec_id)
         sel = torch.where(match, nidx, sel)
         found = found | match
-    sec_rgb = hdr.reshape(-1, 3)[sel]
+    sec_rgb = (hdr if hdr_halo is None else hdr_halo).reshape(-1, 3)[sel]
     # unfound secondaries keep the primary; live excludes n_sec == 0
     w_c = torch.where(found, n_sec * 0.25, torch.zeros_like(n_sec))
     w_img = sparse.scatter_pixels(
@@ -972,7 +996,11 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
                          ao_map: torch.Tensor | None = None,
                          textures=None, aniso_taps: int = 0,
                          slots_used: tuple | None = None,
-                         mip_jit: torch.Tensor | None = None):
+                         mip_jit: torch.Tensor | None = None,
+                         halo: tuple | None = None,
+                         full_height: int | None = None,
+                         y_offset: int = 0, cap: int | None = None,
+                         choose=None):
     """The "shade" MSAA edge resolve: the secondary surface of each edge
     pixel (msaa.resolve_secondary) interpolated from its record at the
     pixel center (raster.interp_record_attrs), unprojected from its depth,
@@ -982,16 +1010,24 @@ def _msaa_edge_secondary(scene: DeviceScene, consts: FrameConstants,
     textures its material_pass runs on the compacted [cap / 512, 512]
     lanes, as in the reference: the uv gradients there difference
     neighbouring lanes, and the mip jitter is the edge pixel's. -> (w_sec
-    [H, W], sec_rgb [H, W, 3] pre-weighted)."""
-    cap = msaa_edge_cap(width, height)
+    [H, W], sec_rgb [H, W, 3] pre-weighted). A screen band passes halo, its
+    (tri_id, depth, object_id, mask) with one neighbour row above and
+    below, the frame's records, full_height and y_offset (the records are
+    interpolated and the surface unprojected at frame rows), and cap and
+    choose as _msaa_edge_neighbor does."""
+    cap = msaa_edge_cap(width, height) if cap is None else cap
+    fh = height if full_height is None else full_height
     object_id = attrs["ids"][..., 0].to(torch.int32)
     records = attrs["records"]
+    det = halo if halo is not None else (tri_id, depth, object_id, mask)
     idx, live, sec_id, n_sec, px, py = msaa_ops.resolve_secondary(
-        records, tri_id, depth, object_id, mask, cov_s, cap,
-        telemetry=telemetry)
+        records, det[0], det[1], det[2], det[3], cov_s, cap,
+        pad=1 if halo is not None else 0, telemetry=telemetry, choose=choose,
+        y_offset=y_offset)
     a = raster.interp_record_attrs(records[sec_id.clamp(min=0).long()], px, py)
 
-    wpos = _unproject(px / width * 2.0 - 1.0, 1.0 - py / height * 2.0,
+    wpos = _unproject(raster.div_true(px, width) * 2.0 - 1.0,
+                      1.0 - raster.div_true(py, fh) * 2.0,
                       a["depth"], consts.inv_view_proj)
 
     def r2(v):                       # [cap(, k)] -> [cap / 512, 512(, k)]
@@ -1059,27 +1095,41 @@ def sky_directions(consts: FrameConstants, width: int,
     return _sky_dirs(consts, px, py)
 
 
-def _sky_quarter_dirs(consts: FrameConstants, width: int,
-                      height: int) -> torch.Tensor:
+def _sky_quarter_dirs(consts: FrameConstants, width: int, height: int,
+                      y_offset: int = 0,
+                      out_rows: int | None = None) -> torch.Tensor:
     """View-ray directions on the quarter-resolution grid whose cell (qy,
-    qx) centers at full-res pixel coords (4qx + 2, 4qy + 2)."""
+    qx) centers at full-res pixel coords (4qx + 2, y_offset + 4qy + 2);
+    out_rows limits the rows (a screen band of the frame)."""
     dev = consts.camera_pos.device
-    qw, qh = -(-width // 4), -(-height // 4)
-    px = (4.0 * torch.arange(qw, dtype=torch.float32, device=dev) + 2.0) \
-        / width * 2.0 - 1.0
-    py = 1.0 - (4.0 * torch.arange(qh, dtype=torch.float32, device=dev) + 2.0) \
-        / height * 2.0
+    qw = -(-width // 4)
+    qh = -(-(height if out_rows is None else out_rows) // 4)
+    px = raster.div_true(
+        4.0 * torch.arange(qw, dtype=torch.float32, device=dev) + 2.0,
+        width) * 2.0 - 1.0
+    rows = 4.0 * torch.arange(qh, dtype=torch.float32, device=dev)
+    if y_offset:
+        rows = rows + y_offset
+    py = 1.0 - raster.div_true(rows + 2.0, height) * 2.0
     return _sky_dirs(consts, px, py)
 
 
-def _axis_up4(a: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
+def _axis_up4(a: torch.Tensor, axis: int, n_out: int,
+              prev: torch.Tensor | None = None,
+              nxt: torch.Tensor | None = None) -> torch.Tensor:
     """Bilinear 4x upsample along one axis of a quarter grid (centers at
     4i + 1.5): +-1 shifts (edge-clamped) blended with the four static
     phase weights, interleaved by reshape. Output index y reads quarter
-    coord (y + 0.5)/4 - 0.5."""
+    coord (y + 0.5)/4 - 0.5. prev/nxt replace the shifted copies (a
+    screen band passes its neighbours' rows, so that its seams blend as
+    the whole frame does)."""
     n = a.shape[axis]
-    prev = torch.cat([a.narrow(axis, 0, 1), a.narrow(axis, 0, n - 1)], dim=axis)
-    nxt = torch.cat([a.narrow(axis, 1, n - 1), a.narrow(axis, n - 1, 1)], dim=axis)
+    if prev is None:
+        prev = torch.cat([a.narrow(axis, 0, 1), a.narrow(axis, 0, n - 1)],
+                         dim=axis)
+    if nxt is None:
+        nxt = torch.cat([a.narrow(axis, 1, n - 1), a.narrow(axis, n - 1, 1)],
+                        dim=axis)
     # phases r = 0..3: p = i + (2r - 3)/8
     phases = [0.375 * prev + 0.625 * a,
               0.125 * prev + 0.875 * a,
@@ -1108,14 +1158,16 @@ def shade_transparent_layer(scene_t: DeviceScene, consts: FrameConstants,
                             depth, tri_id, gbuf, width: int, height: int,
                             env: EnvironmentMaps | None = None,
                             textures=None,
-                            slots_used: tuple | None = None) -> dict:
+                            slots_used: tuple | None = None,
+                            full_height: int | None = None,
+                            y_offset: int = 0) -> dict:
     """One peeled layer's G-buffer -> dict(depth, tri_id, mask, color
     [H, W, 3], alpha in [0, 1]): the material (with textures sampled as the
     reference samples a layer: trilinear, no mip jitter, no anisotropy),
     shaded by the environment and the direct lights without casters or
-    screen-space effects."""
+    screen-space effects. full_height and y_offset place a screen band."""
     attrs, lmask = _attrs_from_gbuf(scene_t, consts, depth, tri_id, gbuf,
-                                    width, height)
+                                    width, height, full_height, y_offset)
     mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"],
                         uv=attrs["uv"], wtan=attrs["wtan"], textures=textures,
                         slots_used=slots_used)
@@ -1136,24 +1188,35 @@ def transparent_layers(scene_t: DeviceScene, consts: FrameConstants,
                        opaque_depth: torch.Tensor, width: int, height: int,
                        num_layers: int = 2,
                        env: EnvironmentMaps | None = None, textures=None,
-                       slots_used: tuple | None = None) -> list[dict]:
+                       slots_used: tuple | None = None,
+                       full_height: int | None = None,
+                       y_offset: int = 0) -> list[dict]:
     """Depth-peel num_layers layers of the transparent scene in front of
     the opaque depth and shade each (shade_transparent_layer): layer k's
     fragments are the nearest with depth(k - 1) < z < opaque depth (layer
     0's from -1), one bounded K1 launch each on one binning at the default
     capacity (whose overflow the frame does not report, as in the
-    reference). -> the layers, nearest first."""
-    setup, extra = geometry_setup_gbuf(scene_t, consts, width, height)
-    binned = raster.bin_triangles(setup, width, height, extra=extra)
+    reference). full_height and y_offset peel a screen band of the frame:
+    the frame's rows up to the band's end are set up, binned and rastered
+    as the frame's, and cut to the band's (raster.rasterize_gbuf_band;
+    the reference shifts the band's vertices instead, which rounds the
+    planes otherwise). -> the layers, nearest first."""
+    fh = height if full_height is None else full_height
+    end = raster.band_end(y_offset, height, fh)
+    setup, extra = geometry_setup_gbuf(scene_t, consts, width, fh)
+    binned = raster.bin_triangles(raster.rows_of_setup(setup, end), width,
+                                  end, extra=extra)
     zlo = torch.full_like(opaque_depth, -1.0)
     layers = []
     for _ in range(num_layers):
-        d, idb, g = raster.rasterize_gbuf(binned, width, height,
-                                          zbound=(zlo, opaque_depth))
+        d, idb, g = raster.rasterize_gbuf_band(binned, width, height, y_offset,
+                                               fh, zbound=(zlo, opaque_depth))
         layers.append(shade_transparent_layer(scene_t, consts, d, idb, g,
                                               width, height, env=env,
                                               textures=textures,
-                                              slots_used=slots_used))
+                                              slots_used=slots_used,
+                                              full_height=full_height,
+                                              y_offset=y_offset))
         zlo = d       # the next layer starts behind this one
     return layers
 
@@ -1174,22 +1237,19 @@ def transparent_pass(scene_t: DeviceScene, consts: FrameConstants,
                      width: int, height: int, env=None, textures=None,
                      num_layers: int = 2, slots_used: tuple | None = None,
                      full_height: int | None = None,
-                     y_offset=0) -> torch.Tensor:
+                     y_offset: int = 0) -> torch.Tensor:
     """Blended transparents (the reference's Model.h:45-65 transparent mesh
     split, rendered after the opaques): transparent_layers, composited
     back to front onto hdr (blend_layers). Order-independent up to
     num_layers-deep overlap; coplanar transparent fragments drop (each
-    layer is a strict peel). Multichip bands (full_height, y_offset) are
-    not ported yet and raise."""
-    unported = {"full_height": full_height is not None,
-                "y_offset": not (isinstance(y_offset, int) and y_offset == 0)}
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(f"transparent_pass: not ported yet: {asked}")
+    layer is a strict peel). A screen band (parallel/multichip.py) passes
+    full_height and y_offset (transparent_layers)."""
     return blend_layers(hdr, transparent_layers(scene_t, consts, opaque_depth,
                                                 width, height, num_layers,
                                                 env=env, textures=textures,
-                                                slots_used=slots_used))
+                                                slots_used=slots_used,
+                                                full_height=full_height,
+                                                y_offset=y_offset))
 
 
 # the material outputs the alpha-mask peel takes from the surface behind
@@ -1202,7 +1262,8 @@ def _alpha_mask_peel(scene: DeviceScene, consts: FrameConstants,
                      depth, tri_id, mask, wpos, n, mat: dict, coverage,
                      textures=None, aniso_taps: int = 0,
                      slots_used: tuple | None = None,
-                     mip_jit: torch.Tensor | None = None):
+                     mip_jit: torch.Tensor | None = None,
+                     full_height: int | None = None, y_offset: int = 0):
     """Alpha-mask discard (ForwardLighting.hlsl:237-240): peel past the
     fragments whose alpha fails the cutout test (< 0.01) and re-resolve
     those pixels on the next surface behind them (one bounded K1 launch,
@@ -1211,13 +1272,17 @@ def _alpha_mask_peel(scene: DeviceScene, consts: FrameConstants,
     sampled as the frame's (textures, aniso_taps, slots_used, the mip
     jitter; no telemetry). -> the merged (depth, tri_id, mask, wpos, n,
     mat, coverage); a failed pixel's per-sample coverage becomes whether
-    the next surface passed."""
+    the next surface passed. full_height and y_offset place a screen
+    band's rows; binned is then the frame's binning of its rows up to the
+    band's end (raster.rasterize_gbuf_band)."""
     fail = mask & (mat["alpha"] < 0.01)
     two = torch.full_like(depth, 2.0)
     zlo = torch.where(fail, depth, two)     # an empty window where passing
-    d2, id2, g2 = raster.rasterize_gbuf(binned, width, height,
-                                        zbound=(zlo, two))
-    attrs2, mask2 = _attrs_from_gbuf(scene, consts, d2, id2, g2, width, height)
+    d2, id2, g2 = raster.rasterize_gbuf_band(
+        binned, width, height, y_offset,
+        height if full_height is None else full_height, zbound=(zlo, two))
+    attrs2, mask2 = _attrs_from_gbuf(scene, consts, d2, id2, g2, width, height,
+                                     full_height, y_offset)
     mat2 = material_pass(unit3(attrs2["wnrm"]), attrs2["mrow"], attrs2["ids"],
                          uv=attrs2["uv"], wtan=attrs2["wtan"], textures=textures,
                          aniso_taps=aniso_taps, slots_used=slots_used,

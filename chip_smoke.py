@@ -7,6 +7,14 @@ Phases, each printing its own lines; any failure exits non-zero before
 the final line:
   1. device: the card's name and power limit, torch/CUDA versions;
   2. build: nvcc build of vqengine_tpu_torch/csrc/*.cu (ptxas lines);
+  2b. the host library (`[native]` lines; utils/native.py, built with the
+     host's g++ from csrc/vq_native.cpp): its build seconds; seeded 512^2
+     RGBA PNGs of each filter 0-4 and a paletted one, read_png against
+     read_png_plain (bitwise); read_png of a 4096^2 RGBA Paeth PNG;
+     generate_mips of a 2048^2 x 4 f32 image against the plain mip_box's
+     chain (bitwise); 8 2048^2 PNGs through TextureManager's 4 workers
+     against one thread. Host times, each line with the card's name and
+     power limit and the host CPU;
   3. K3 palette kernel vs its plain PyTorch version at the four main-path
      lookups (bitwise), both timed with CUDA events, and
      torch.index_select on the pre-padded table with pre-clamped ids as
@@ -210,9 +218,12 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import platform
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import torch
@@ -260,6 +271,7 @@ EARLIER_MS = {"raster_gbuf": 0.8552, "raster_gbuf_msaa": 1.7567,
               "raster_gbuf_msaa_bounded": 1.5447, "raster_vis": 4.6404,
               "raster_vis_msaa4": 7.4914, "palette": 0.2967}
 ROOT = Path(__file__).resolve().parent
+NATIVE_LOADS = 8        # 2048^2 PNGs through TextureManager's workers
 
 
 def fail(msg: str) -> None:
@@ -404,6 +416,158 @@ def phase_build() -> None:
         f"{lib.vq_raster_gbuf_smem_bytes(1)} bytes (bounded or not); K2 "
         f"center {lib.vq_raster_vis_smem_bytes(0)} bytes, MSAA 4x "
         f"{lib.vq_raster_vis_smem_bytes(1)} bytes")
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (model name, vendor, family
+    and model of its first processor) and the cores this process sees."""
+    info = {}
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            if not key.strip() and info:
+                break
+            info.setdefault(key.strip(), value.strip())
+    return (f"{info.get('model name', platform.machine())} "
+            f"({info.get('vendor_id', '?')} family {info.get('cpu family', '?')} "
+            f"model {info.get('model', '?')}), {os.cpu_count()} cores")
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean host ms per call of iters calls after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def same_bytes(a, b) -> bool:
+    """Two numpy arrays of one dtype and shape, bit for bit."""
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def seeded_rgba(side: int, seed: int):
+    """A side x side RGBA uint8 texture from a seed: two gradients that
+    wrap, plus 3 bits of noise per byte."""
+    import numpy as np
+    ramp = np.arange(side, dtype=np.int32)
+    base = (ramp[None, :, None] * np.int32([1, 2, 3, 0])
+            + ramp[:, None, None] * np.int32([3, 1, 0, 2])) >> 3
+    noise = np.random.default_rng(seed).integers(0, 8, base.shape, np.uint8)
+    return base.astype(np.uint8) + noise
+
+
+def phase_native(card: str) -> None:
+    """The host library (utils/native.py, csrc/vq_native.cpp), host times
+    beside the card and the host CPU: its build; seeded 512^2 RGBA PNGs of
+    each filter (0-4) and a paletted one (filters mixed row by row), read_png
+    against read_png_plain, bitwise; read_png of a 4096^2 RGBA Paeth PNG;
+    generate_mips of a 2048^2 x 4 f32 image against the plain mip_box's
+    chain, bitwise; NATIVE_LOADS seeded 2048^2 PNGs (crops of the 4096^2
+    image at seeded offsets) through TextureManager.create_from_file +
+    wait_all on its 4 workers against the same work one after another on
+    one thread. The files deflate with zlib.Z_RLE on a thread pool while
+    the plain decodes run; every native time is taken after the pool has
+    finished."""
+    import concurrent.futures as futures
+    import tempfile
+
+    import numpy as np
+
+    from vqengine_tpu_torch.scene import texture_manager as tm
+    from vqengine_tpu_torch.utils import image_io, native
+    where = f"host ms; {card}; host {host_cpu()}"
+    t0 = time.perf_counter()
+    native.library()
+    say(f"[native] {native.SOURCE.name}: build {native.build_seconds:.3f} s "
+        f"({native.compiler()} {' '.join(native.CXX_FLAGS)}), load "
+        f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(7)
+    palette = rng.integers(0, 256, (256, 3), np.uint8)
+    jobs = {f"filter {f}": (seeded_rgba(512, f), (f,), None) for f in range(5)}
+    jobs["paletted, filters 0-4 by row"] = (
+        rng.integers(0, 256, (512, 512), np.uint8), (0, 1, 2, 3, 4), palette)
+    small = list(jobs)
+    big = "4096^2 Paeth"
+    jobs[big] = (seeded_rgba(4096, 5), (4,), None)
+    for i, (y, x) in enumerate(rng.integers(0, 2048, (NATIVE_LOADS, 2))):
+        jobs[f"load {i}"] = (jobs[big][0][y:y + 2048, x:x + 2048],
+                             (0, 1, 2, 3, 4), None)
+    with tempfile.TemporaryDirectory() as tmp, \
+            futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        def encode(i, k):
+            img, f, pal = jobs[k]
+            path = Path(tmp, f"{i}.png")
+            path.write_bytes(image_io.encode_png(img, f, palette=pal,
+                                                 strategy=zlib.Z_RLE))
+            return path
+        # zlib.compress releases the GIL: the files encode in parallel
+        paths = {k: pool.submit(encode, i, k) for i, k in enumerate(jobs)}
+        plain_ms = {}
+        for k in small:
+            img, _, pal = jobs[k]
+            paths[k] = paths[k].result()
+            t1 = time.perf_counter()
+            plain = image_io.read_png_plain(paths[k])
+            plain_ms[k] = (time.perf_counter() - t1) * 1e3
+            if not same_bytes(plain, img if pal is None else pal[img]):
+                fail(f"[native] 512^2 {k}: read_png_plain differs from the "
+                     f"image encoded")
+            jobs[k] = plain
+        paths = {k: p if isinstance(p, Path) else p.result()
+                 for k, p in paths.items()}
+        for k in small:
+            if not same_bytes(image_io.read_png(paths[k]), jobs[k]):
+                fail(f"[native] 512^2 {k}: read_png differs from read_png_plain")
+            ms = host_ms(lambda: image_io.read_png(paths[k]), 5)
+            inflate = host_ms(lambda: image_io.parse_png(paths[k].read_bytes()), 5)
+            say(f"[native] 512^2 {k}: read_png {ms:.3f} ms (of which read and "
+                f"inflate {inflate:.3f}), read_png_plain {plain_ms[k]:.1f} ms, "
+                f"bitwise equal ({where})")
+        t1 = time.perf_counter()
+        got = image_io.read_png(paths[big])
+        ms = (time.perf_counter() - t1) * 1e3
+        if not same_bytes(got, jobs[big][0]):
+            fail(f"[native] {big}: read_png differs from the image encoded")
+        inflate = host_ms(lambda: image_io.parse_png(paths[big].read_bytes()), 1)
+        say(f"[native] {big} RGBA ({paths[big].stat().st_size} bytes): "
+            f"read_png {ms:.3f} ms (of which read and inflate {inflate:.3f}), "
+            f"{got.nbytes / ms / 1e3:.1f} MB/s decoded, equal to the image "
+            f"encoded ({where})")
+
+        img = np.random.default_rng(3).random((2048, 2048, 4)).astype(np.float32)
+
+        def plain_mips():
+            mips = [img]
+            while min(mips[-1].shape[:2]) > 1:
+                mips.append(tm.mip_box(mips[-1]))
+            return mips
+        got, plain = tm.generate_mips(img), plain_mips()
+        if len(got) != len(plain) or not all(map(same_bytes, got, plain)):
+            fail("[native] generate_mips differs from the plain mip_box's chain")
+        say(f"[native] generate_mips 2048^2 x 4 f32 ({len(got)} levels): "
+            f"native {host_ms(lambda: tm.generate_mips(img), 3):.3f} ms, numpy "
+            f"{host_ms(plain_mips, 3):.3f} ms, bitwise equal level by level "
+            f"({where})")
+
+        loads = [paths[f"load {i}"] for i in range(NATIVE_LOADS)]
+        m = tm.TextureManager(size=512, num_workers=4)
+        t1 = time.perf_counter()
+        ids = [m.create_from_file(q) for q in loads]
+        m.wait_all()
+        t_workers = (time.perf_counter() - t1) * 1e3
+        m._pool.shutdown()
+        t1 = time.perf_counter()
+        want = [tm._resize_box(tm._to_rgba_f32(image_io.read_png(q)), 512)
+                for q in loads]
+        t_serial = (time.perf_counter() - t1) * 1e3
+        if not all(map(same_bytes, [m._images[i] for i in ids], want)):
+            fail("[native] TextureManager's loads differ from the serial loads")
+        say(f"[native] {NATIVE_LOADS} 2048^2 RGBA PNGs (filters 0-4 by row) to "
+            f"512^2 textures: TextureManager.create_from_file + wait_all on 4 "
+            f"workers {t_workers:.1f} ms, the same on one thread "
+            f"{t_serial:.1f} ms ({t_serial / t_workers:.2f}x), equal ({where})")
 
 
 def load_sponza(dev, translucent: bool = False):
@@ -3241,6 +3405,7 @@ def main() -> None:
     card = phase_device()
     dev = torch.device("cuda", 0)
     timed("build", phase_build)
+    timed("native", phase_native, card)
     sponza, renderer = timed("Sponza", load_sponza, dev)
     st, rt = timed("translucent Sponza", load_sponza, dev, True)
     k3 = timed("K3", phase_palette, dev, sponza, renderer)

@@ -101,7 +101,7 @@ def loading_screen(width: int, height: int, data_dirs=()) -> np.ndarray:
             try:
                 img = read_png(screens[0]).astype(np.float32) / 255.0
                 break
-            except Exception:  # noqa: BLE001
+            except (OSError, ValueError):  # unreadable: the gradient below
                 pass
     if img is None:
         g = np.linspace(0.02, 0.12, height, dtype=np.float32)

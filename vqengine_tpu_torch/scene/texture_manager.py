@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import native
 from ..utils.log import warning
 
 
@@ -60,21 +61,27 @@ def _to_rgba_f32(img: np.ndarray) -> np.ndarray:
 
 
 def mip_box(img: np.ndarray) -> np.ndarray:
-    """One 2x2 box-filtered level of f32 [H, W, C] (H, W even): each texel
-    0.25 * (((a + b) + c) + d) over its block's (y0, x0), (y0, x1), (y1, x0),
-    (y1, x1), the order of the JAX package's native mip kernel
-    (native/vq_native.cpp vq_mip_box) and of its numpy mean."""
-    t = img[: img.shape[0] // 2 * 2, : img.shape[1] // 2 * 2]
-    s = ((t[0::2, 0::2] + t[0::2, 1::2]) + t[1::2, 0::2]) + t[1::2, 1::2]
+    """One 2x2 box-filtered level of f32 [H, W, C] or [H, W] -> [max(H // 2,
+    1), max(W // 2, 1)(, C)]: each texel 0.25 * (((a + b) + c) + d) over its
+    block's (y0, x0), (y0, x1), (y1, x0), (y1, x1), the last row and column
+    clamped on a side of 1; the plain version of utils.native.mip_box, the
+    order of the JAX package's native mip kernel (vq_mip_box)."""
+    h2, w2 = max(img.shape[0] // 2, 1), max(img.shape[1] // 2, 1)
+    r0 = img[0:2 * h2:2]
+    r1 = img[1:2 * h2:2] if img.shape[0] > 1 else r0
+    x0 = slice(0, 2 * w2, 2)
+    x1 = slice(1, 2 * w2, 2) if img.shape[1] > 1 else x0
+    s = ((r0[:, x0] + r0[:, x1]) + r1[:, x0]) + r1[:, x1]
     return (np.float32(0.25) * s).astype(np.float32)
 
 
 def generate_mips(img: np.ndarray) -> list[np.ndarray]:
-    """Full mip chain by 2x2 box filter (the reference's mip workers)."""
+    """Full mip chain by 2x2 box filter (the reference's mip workers), each
+    level from the host library's vq_mip_box (utils/native.py)."""
     mips = [img]
     cur = img
     while min(cur.shape[:2]) > 1:
-        cur = mip_box(cur)
+        cur = native.mip_box(cur)
         mips.append(cur)
     return mips
 
@@ -179,6 +186,9 @@ class TextureManager:
         key = str(path)
         if key in self._by_key:
             return self._by_key[key]
+        # the decoder's library builds here, in the caller, so that a
+        # failed build raises instead of failing each texture in a worker
+        native.library()
         tid = len(self._images)
         self._images.append(np.zeros((self.size, self.size, 4), np.float32))
         self._by_key[key] = tid

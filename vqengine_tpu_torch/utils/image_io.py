@@ -1,4 +1,5 @@
-"""Image IO — PNG read/write (pure python: zlib) and Radiance .hdr support.
+"""Image IO — PNG read/write (zlib; the decode's row unfilter in C++,
+utils/native.py) and Radiance .hdr support.
 
 Counterpart of the reference's stb_image usage (VQUtils Image, used by
 TextureManager.cpp) and the screenshot/readback paths. No external image
@@ -17,57 +18,145 @@ import numpy as np
 # PNG
 # ---------------------------------------------------------------------------
 
-def write_png(path: str | Path, img: np.ndarray) -> None:
-    """img: [H, W], [H, W, 1], [H, W, 3] or [H, W, 4]; uint8 or float in [0,1]."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8:
-        img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> channels
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def encode_png(img: np.ndarray, filters=(0,), palette=None,
+               strategy: int = zlib.Z_DEFAULT_STRATEGY) -> bytes:
+    """PNG bytes of uint8 [H, W], [H, W, 1], [H, W, 2], [H, W, 3] or
+    [H, W, 4]; row y filtered with filters[y % len(filters)] (0 none,
+    1 sub, 2 up, 3 average, 4 Paeth; any other byte is written as it is,
+    with the row unfiltered: a corrupt PNG). With palette ([K, 3] uint8) the
+    image holds palette indices ([H, W]) and is written as colour type 3.
+    The rows deflate at level 6 with the zlib strategy given (zlib.Z_RLE
+    compresses filtered rows several times faster than the default)."""
+    img = np.asarray(img, dtype=np.uint8)
     if img.ndim == 2:
         img = img[:, :, None]
     h, w, c = img.shape
-    color_type = {1: 0, 2: 4, 3: 2, 4: 6}[c]
-
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    color_type = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    cur = img.reshape(h, w * c).astype(np.int16)
+    ft = np.resize(np.asarray(filters, np.uint8), h)
+    rows = np.empty((h, 1 + w * c), np.uint8)
+    rows[:, 0] = ft
+    rows[:, 1:] = cur
+    for f in {1, 2, 3, 4} & set(ft.tolist()):
+        r = np.flatnonzero(ft == f)
+        x = cur[r]
+        b = np.where((r > 0)[:, None], cur[r - 1], np.int16(0))
+        a = np.zeros_like(x)
+        a[:, c:] = x[:, :-c]
+        if f == 1:
+            pred = a
+        elif f == 2:
+            pred = b
+        elif f == 3:
+            pred = (a + b) >> 1
+        else:
+            ul = np.zeros_like(b)
+            ul[:, c:] = b[:, :-c]
+            pred = _paeth(a, b, ul)
+        rows[r, 1:] = ((x - pred) & 0xFF).astype(np.uint8)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
-    png = (b"\x89PNG\r\n\x1a\n"
-           + chunk(b"IHDR", ihdr)
-           + chunk(b"IDAT", zlib.compress(raw, 6))
-           + chunk(b"IEND", b""))
-    Path(path).write_bytes(png)
+    deflate = zlib.compressobj(6, zlib.DEFLATED, 15, 8, strategy)
+    plte = (chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+            if palette is not None else b"")
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", ihdr) + plte
+            + chunk(b"IDAT", deflate.compress(rows.tobytes()) + deflate.flush())
+            + chunk(b"IEND", b""))
 
 
-def read_png(path: str | Path) -> np.ndarray:
-    """PNG reader: 8-bit, color types 0/2/3/4/6, no interlace.
-    Returns uint8 [H, W, C]. (The JAX package's copy also tries its
-    native decoder first; the port decodes in Python only.)"""
-    data = Path(path).read_bytes()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
+def write_png(path: str | Path, img: np.ndarray) -> None:
+    """img: [H, W], [H, W, 1], [H, W, 3] or [H, W, 4]; uint8 or float in [0,1]."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    Path(path).write_bytes(encode_png(img))
+
+
+def parse_png(data: bytes):
+    """The chunk walk and the inflate of an 8-bit, non-interlaced PNG of
+    colour type 0, 2, 3, 4 or 6 -> (w, h, color_type, palette, raw):
+    palette the PLTE chunk's bytes (b"" without one), raw the inflated
+    stream of h rows of (filter byte, w * channels bytes). Raises
+    ValueError on a file it cannot decode."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
     pos = 8
-    w = h = bitdepth = color_type = None
-    idat = b""
-    palette = None
-    while pos < len(data):
+    ihdr = None
+    idat = []
+    palette = b""
+    while pos + 12 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if tag == b"IHDR":
-            w, h, bitdepth, color_type, _, _, interlace = struct.unpack(">IIBBBBB", body)
-            assert bitdepth == 8, f"unsupported bit depth {bitdepth}"
-            assert interlace == 0, "interlaced PNG unsupported"
+            if len(body) != 13:
+                raise ValueError(f"IHDR chunk of {len(body)} bytes, not 13")
+            ihdr = struct.unpack(">IIBBBBB", body)
         elif tag == b"PLTE":
-            palette = np.frombuffer(body, dtype=np.uint8).reshape(-1, 3)
+            palette = body
         elif tag == b"IDAT":
-            idat += body
+            idat.append(body)
         elif tag == b"IEND":
             break
-    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
-    raw = zlib.decompress(idat)
+    if ihdr is None:
+        raise ValueError("PNG without an IHDR chunk")
+    w, h, bitdepth, color_type, _, _, interlace = ihdr
+    if w == 0 or h == 0:
+        raise ValueError(f"PNG of {w}x{h} pixels")
+    if bitdepth != 8:
+        raise ValueError(f"unsupported bit depth {bitdepth}")
+    if interlace != 0:
+        raise ValueError("interlaced PNG unsupported")
+    if color_type not in CHANNELS:
+        raise ValueError(f"unsupported colour type {color_type}")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG data: {e}") from e
+    if len(raw) != (w * CHANNELS[color_type] + 1) * h:
+        raise ValueError(f"PNG data holds {len(raw)} bytes, not the "
+                         f"{(w * CHANNELS[color_type] + 1) * h} of {w}x{h}")
+    return w, h, color_type, palette, raw
+
+
+def palette768(palette: bytes) -> np.ndarray:
+    """The PLTE chunk's first 256 entries as 768 bytes, zero past its end
+    (an index past the palette decodes as black)."""
+    out = np.zeros(768, np.uint8)
+    body = np.frombuffer(palette[:768], np.uint8)
+    out[:len(body)] = body
+    return out
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """PNG reader: 8-bit, color types 0/2/3/4/6, no interlace.
+    Returns uint8 [H, W, C] (palette images as RGB). Decodes through the
+    port's C++ unfilter (utils/native.py, built at first use: a failed build
+    raises RuntimeError); a file it cannot decode raises ValueError."""
+    from .native import png_decode
+    return png_decode(Path(path).read_bytes())
+
+
+def read_png_plain(path: str | Path) -> np.ndarray:
+    """read_png's plain Python version (the tests and the smoke hold the
+    native decoder against it)."""
+    w, h, color_type, palette, raw = parse_png(Path(path).read_bytes())
+    channels = CHANNELS[color_type]
     stride = w * channels
     out = np.zeros((h, stride), dtype=np.uint8)
     prev = np.zeros(stride, dtype=np.uint8)
@@ -80,7 +169,7 @@ def read_png(path: str | Path) -> np.ndarray:
             pass
         elif ft == 1:  # sub
             for x in range(channels, stride):
-                line[x] = (line[x] + line[x - channels]) & 0xFF
+                line[x] = (int(line[x]) + int(line[x - channels])) & 0xFF
         elif ft == 2:  # up
             line = (line.astype(np.int32) + prev).astype(np.uint8)
         elif ft == 3:  # average
@@ -102,7 +191,7 @@ def read_png(path: str | Path) -> np.ndarray:
         prev = line
     img = out.reshape(h, w, channels)
     if color_type == 3:
-        img = palette[img[:, :, 0]]
+        img = palette768(palette).reshape(256, 3)[img[:, :, 0]]
     return img
 
 

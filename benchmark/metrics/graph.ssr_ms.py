@@ -1,0 +1,9 @@
+"""Device ms a frame in the SSR pass: the program's vq.pass.* spans, each a
+CUDA event pair from the device reaching the pass to its end."""
+from harness import spans
+
+PASSES = ("ssr",)
+
+
+def read(ctx):
+    return spans.device_ms("vq.pass." + p for p in PASSES)

@@ -16,6 +16,7 @@ the caller passes a CPU device.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import enum
@@ -36,7 +37,7 @@ from ..scene.mesh import build_builtin_meshes
 from ..scene.scenes import augment_scene
 from ..scene.serialization import FSceneRepresentation, parse_scene_file
 from ..scene.texture_manager import TextureManager
-from ..utils import log
+from ..utils import log, trace
 from ..utils.image_io import write_png
 from . import events as ev
 from .cli import parse_command_line
@@ -70,6 +71,38 @@ def engine_device(device=None) -> torch.device:
                            "(pass device=torch.device('cpu') to run on the "
                            "CPU)")
     return torch.device("cuda")
+
+
+class TickClock:
+    """The device time of finished ticks, read without blocking: on a CUDA
+    device one event pair per tick, read on a later tick once query() says
+    the device has passed its end; elsewhere nothing (None)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._pending: collections.deque = collections.deque()
+
+    def start(self):
+        """The tick's start event (None off CUDA)."""
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def stop(self, start) -> float | None:
+        """Record the tick's end; -> the ms of the newest tick the device
+        has finished since the last call, or None."""
+        if start is None:
+            return None
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self._pending.append((start, end))
+        ms = None
+        while self._pending and self._pending[0][1].query():
+            a, b = self._pending.popleft()
+            ms = a.elapsed_time(b)
+        return ms
 
 
 def _host(x) -> np.ndarray:
@@ -138,7 +171,9 @@ class VQEngineTorch:
         self.input = Input()
         self.events = ev.BufferedEventQueue()
         self._last_stats_log = time.perf_counter()
-        self._frame_times: list[float] = []
+        # host seconds of the last 256 ticks (the periodic log's window)
+        self._frame_times: collections.deque = collections.deque(maxlen=256)
+        self._tick_clock = TickClock(self.device)
         # async loading (the reference's mWorkers_ModelLoading / background
         # env-map queues): host-side parse/decode runs on this pool while
         # frames keep flowing; the device upload and the IBL prefilter
@@ -326,7 +361,8 @@ class VQEngineTorch:
             n = sum(1 for l in self.lights if l.enabled and l.casts_shadows)
             log.info(f"static shadow maps cached ({n} casters)")
         self._last_output = FrameOutput.of(out)
-        self._apply_debug_views()
+        with trace.span("vq.tick.debug_views"):
+            self._apply_debug_views()
         return self._last_output
 
     # ------------------------------------------------------------------
@@ -642,7 +678,7 @@ class VQEngineTorch:
         now = time.perf_counter()
         if now - self._last_stats_log < 4.0 or not self._frame_times:
             return
-        ft = np.asarray(self._frame_times[-256:])
+        ft = np.asarray(self._frame_times)
         s = self.renderer.stats
         log.info(
             f"[profiler] frame {self.num_ticks}: "
@@ -655,24 +691,37 @@ class VQEngineTorch:
         """One simulation tick: events -> input -> update -> render
         (SimulationThread_Tick, VQEngine_Simulation.cpp:88-105); the frame
         renders without readback."""
+        with trace.tick():
+            return self._tick(dt)
+
+    def _tick(self, dt: float):
         t0 = time.perf_counter()
-        # finalize async loads whose host work completed
-        if self._scene_future is not None:
-            self.poll_scene_loading()
-        if self._env_future is not None and self._env_future.done():
-            eq = self._env_future.result()
-            self._env_future = None
-            self.environment = self._build_environment_maps(eq)
-        self.handle_events()
-        if self.scene_buffers is None:
+        with trace.span("vq.tick.events"):
+            # finalize async loads whose host work completed
+            if self._scene_future is not None:
+                self.poll_scene_loading()
+            if self._env_future is not None and self._env_future.done():
+                eq = self._env_future.result()
+                self._env_future = None
+                self.environment = self._build_environment_maps(eq)
+            self.handle_events()
+            loaded = self.scene_buffers is not None
+            if loaded:
+                self.handle_engine_input(dt)
+        if not loaded:
             return self._last_output     # still LOADING: nothing to render
-        self.handle_engine_input(dt)
+        start = self._tick_clock.start()
         if self.scene_update_hook is not None:
-            self.scene_update_hook(self, dt)
+            with trace.span("vq.tick.hook"):
+                self.scene_update_hook(self, dt)
         out = self.render_frame(readback=False)
-        self._render_extra_contexts()
+        with trace.span("vq.tick.contexts"):
+            self._render_extra_contexts()
         self.input.post_update()
         self.num_ticks += 1
+        ms = self._tick_clock.stop(start)
+        if ms is not None:
+            self.renderer.stats.last_frame_ms = ms
         # frame-rate limiter (Settings.h:47, VQEngine_Update.cpp:343-368)
         if self.gfx.MaxFrameRate > 0:
             target = 1.0 / self.gfx.MaxFrameRate

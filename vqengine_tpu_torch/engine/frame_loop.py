@@ -23,6 +23,7 @@ import numpy as np
 from ..render.graph import frame_constants_from_numpy
 from ..render.renderer import VQRendererTorch, frame_constants_numpy
 from ..scene.light import EMobility
+from ..utils import trace
 from .scene_load import LoadedScene
 
 
@@ -74,21 +75,24 @@ class FrameLoop:
     def render(self, readback: bool = False) -> dict:
         """One frame (readback: VQRendererTorch.render's; the engine's tick
         renders without)."""
-        fields = self.constants()
-        consts = frame_constants_from_numpy(fields, self.renderer.device)
+        with trace.span("vq.frame.constants"):
+            fields = self.constants()
+            consts = frame_constants_from_numpy(fields, self.renderer.device)
+            world = fields["world"]
+            if (self.prev_world is not None
+                    and self.prev_world.shape == world.shape):
+                moved = np.flatnonzero(
+                    np.abs(world - self.prev_world).max(axis=(1, 2)) > 1e-6)
+                if moved.size:
+                    self.dynamic_items = tuple(sorted(
+                        set(self.dynamic_items) | {int(i) for i in moved}))
+            self.prev_world = world
+            self.prev_vp = fields["view_proj"]
         if self.cache_shadow_maps and self.static_maps is None:
-            self.static_maps = self.renderer.precompute_shadow_maps(
-                consts, shadow_dims=self.flags.get("shadow_dims"),
-                filter_mode=self.flags.get("shadow_filter", "esm"))
-        world = fields["world"]
-        if self.prev_world is not None and self.prev_world.shape == world.shape:
-            moved = np.flatnonzero(
-                np.abs(world - self.prev_world).max(axis=(1, 2)) > 1e-6)
-            if moved.size:
-                self.dynamic_items = tuple(sorted(
-                    set(self.dynamic_items) | {int(i) for i in moved}))
-        self.prev_world = world
-        self.prev_vp = fields["view_proj"]
+            with trace.span("vq.frame.static_maps"):
+                self.static_maps = self.renderer.precompute_shadow_maps(
+                    consts, shadow_dims=self.flags.get("shadow_dims"),
+                    filter_mode=self.flags.get("shadow_filter", "esm"))
         out = self.renderer.render(
             consts, self.width, self.height, readback=readback,
             shadow_maps=self.static_maps,

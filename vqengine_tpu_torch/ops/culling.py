@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .palette import palette_lookup
 from .raster import div_true, matvec_fma
 from .texture import log_xla
@@ -40,7 +41,9 @@ _SIGNS = [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
 def projected_bb_area(world_centers: torch.Tensor, world_extents: torch.Tensor,
                       view_proj: torch.Tensor) -> torch.Tensor:
     """NDC bbox area of the 8 projected AABB corners, in [0, 4]."""
-    signs = torch.tensor(_SIGNS, dtype=torch.float32, device=world_centers.device)
+    with trace.blocking("culling.signs"):
+        signs = torch.tensor(_SIGNS, dtype=torch.float32,
+                             device=world_centers.device)
     corners = world_centers[:, None, :] + signs[None] * world_extents[:, None, :]
     hom = torch.cat([corners, torch.ones_like(corners[..., :1])], dim=-1)
     # the reference's einsum "ij,nkj->nki", its four products summed in
@@ -66,8 +69,9 @@ LOD_AREA_THRESHOLD_BITS = (0x3DCCCCCB, 0x3C23D707, 0x3A83126C, 0x38D1B70F,
 
 def lod_area_thresholds(device=None) -> torch.Tensor:
     """t_0..t_6 as an f32 tensor [7]."""
-    return torch.tensor(LOD_AREA_THRESHOLD_BITS, dtype=torch.int32,
-                        device=device).view(torch.float32)
+    with trace.blocking("culling.lod_thresholds"):
+        return torch.tensor(LOD_AREA_THRESHOLD_BITS, dtype=torch.int32,
+                            device=device).view(torch.float32)
 
 
 def lod_from_projected_area(area: torch.Tensor, num_lods: torch.Tensor,

@@ -32,6 +32,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import trace
 from . import _backend
 from .palette import palette_lookup
 
@@ -371,8 +372,9 @@ def rasterize_gbuf_band(binned: BinnedTriangles, width: int,
 def killed_record(rows: int, device: torch.device) -> torch.Tensor:
     """A record whose coverage test never passes (e'0 = (0, 0, -1))."""
     k = torch.zeros(rows, dtype=torch.float32, device=device)
-    k[2] = -1.0
-    k[12] = float(BG_ID)
+    with trace.blocking("raster.killed_record", 2):
+        k[2] = -1.0
+        k[12] = float(BG_ID)
     return k
 
 
@@ -482,59 +484,67 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
     covered tiles in row-major order, and the sort keeps that order inside
     each bin. Bins 0..NT-1 are tiles (small triangles), NT..NT+TILES_Y-1
     tile rows (triangles covering more than k_max tiles)."""
-    tiles_x = cdiv(width, TILE_W)
-    tiles_y = cdiv(height, TILE_H)
-    nt = tiles_x * tiles_y
-    nbins = nt + tiles_y
-    t = setup.edges9.shape[0]
-    dev = setup.edges9.device
-    if pair_capacity is None:
-        pair_capacity = default_pair_cap(t)
-    cap_all = cdiv(pair_capacity, GROUP) * GROUP
+    with trace.span("vq.raster.bin", setup.edges9.device):
+        tiles_x = cdiv(width, TILE_W)
+        tiles_y = cdiv(height, TILE_H)
+        nt = tiles_x * tiles_y
+        nbins = nt + tiles_y
+        t = setup.edges9.shape[0]
+        dev = setup.edges9.device
+        if pair_capacity is None:
+            pair_capacity = default_pair_cap(t)
+        cap_all = cdiv(pair_capacity, GROUP) * GROUP
 
-    records = pack_records(setup, extra)
-    rows = records.shape[1]
-    killed = killed_record(rows, dev)
+        records = pack_records(setup, extra)
+        rows = records.shape[1]
+        killed = killed_record(rows, dev)
 
-    tx0 = setup.tile_lo[:, 0].long()
-    ty0 = setup.tile_lo[:, 1].long()
-    nc, medium, span_w = _pair_counts(setup, k_max)
-    big = setup.valid & setup.big
+        tx0 = setup.tile_lo[:, 0].long()
+        ty0 = setup.tile_lo[:, 1].long()
+        nc, medium, span_w = _pair_counts(setup, k_max)
+        big = setup.valid & setup.big
 
-    total = int(nc.sum())
-    n_live = min(total, cap_all)
-    tri_of_pair = torch.repeat_interleave(
-        torch.arange(t, device=dev), nc, output_size=total)[:n_live]
-    offs = torch.cumsum(nc, 0) - nc
-    k = torch.arange(n_live, device=dev) - offs[tri_of_pair]
-    sw = span_w[tri_of_pair].clamp(min=1)
-    q = torch.div(k, sw, rounding_mode="floor")
-    fine = (ty0[tri_of_pair] + q) * tiles_x + tx0[tri_of_pair] + (k - q * sw)
-    row = nt + ty0[tri_of_pair] + k
-    bins = torch.where(medium[tri_of_pair], row, fine)
-    _, order = torch.sort(bins, stable=True)
-    pairs = torch.cat([records[tri_of_pair[order]],
-                       killed.expand(cap_all - n_live, rows)], dim=0)
-    counts = torch.bincount(bins, minlength=nbins)
-    starts_all = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                            torch.cumsum(counts, 0)]).to(torch.int32)
-    dropped = max(total - cap_all, 0)
+        total = trace.read_int(nc.sum(), "raster.bin.pairs")
+        n_live = min(total, cap_all)
+        tri_of_pair = torch.repeat_interleave(
+            torch.arange(t, device=dev), nc, output_size=total)[:n_live]
+        offs = torch.cumsum(nc, 0) - nc
+        k = torch.arange(n_live, device=dev) - offs[tri_of_pair]
+        sw = span_w[tri_of_pair].clamp(min=1)
+        q = torch.div(k, sw, rounding_mode="floor")
+        fine = ((ty0[tri_of_pair] + q) * tiles_x + tx0[tri_of_pair]
+                + (k - q * sw))
+        row = nt + ty0[tri_of_pair] + k
+        bins = torch.where(medium[tri_of_pair], row, fine)
+        _, order = torch.sort(bins, stable=True)
+        pairs = torch.cat([records[tri_of_pair[order]],
+                           killed.expand(cap_all - n_live, rows)], dim=0)
+        # bincount reads the bins' least and largest value on the host
+        with trace.blocking("raster.bin.bincount", 2 if bins.numel() else 0):
+            counts = torch.bincount(bins, minlength=nbins)
+        starts_all = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                                torch.cumsum(counts, 0)]).to(torch.int32)
+        dropped = max(total - cap_all, 0)
 
-    # global tier: its ids in ascending order, truncated at GLOBAL_CAP
-    gids = torch.nonzero(big).flatten()[:GLOBAL_CAP]
-    gcount = gids.shape[0]
-    gpairs = killed.expand(GLOBAL_CAP, rows).clone()
-    gpairs[:gcount] = records[gids]
-    nbig = int(big.sum())
+        # global tier: its ids in ascending order, truncated at GLOBAL_CAP
+        with trace.blocking("raster.bin.nonzero"):
+            gids = torch.nonzero(big).flatten()[:GLOBAL_CAP]
+        gcount = gids.shape[0]
+        gpairs = killed.expand(GLOBAL_CAP, rows).clone()
+        gpairs[:gcount] = records[gids]
+        nbig = trace.read_int(big.sum(), "raster.bin.globals")
 
-    i32 = dict(dtype=torch.int32, device=dev)
-    return BinnedTriangles(
-        pairs=pairs, starts=starts_all[:nt + 1].contiguous(),
-        rstarts=starts_all[nt:].contiguous(), gpairs=gpairs,
-        gmeta=torch.tensor([gcount, tiles_x], **i32),
-        overflow=torch.tensor([dropped, 0, max(nbig - GLOBAL_CAP, 0)], **i32),
-        demand=torch.tensor(total, **i32),
-        tiles_x=tiles_x, tiles_y=tiles_y, pair_cap=cap_all)
+        i32 = dict(dtype=torch.int32, device=dev)
+        with trace.blocking("raster.bin.upload", 3):
+            gmeta = torch.tensor([gcount, tiles_x], **i32)
+            overflow = torch.tensor([dropped, 0, max(nbig - GLOBAL_CAP, 0)],
+                                    **i32)
+            demand = torch.tensor(total, **i32)
+        return BinnedTriangles(
+            pairs=pairs, starts=starts_all[:nt + 1].contiguous(),
+            rstarts=starts_all[nt:].contiguous(), gpairs=gpairs, gmeta=gmeta,
+            overflow=overflow, demand=demand, tiles_x=tiles_x, tiles_y=tiles_y,
+            pair_cap=cap_all)
 
 
 def pair_demand_of(setup: TriangleSetup,
@@ -576,7 +586,8 @@ def _group_sequences(binned: BinnedTriangles) -> tuple[torch.Tensor, int]:
     tiles_x, tiles_y = binned.tiles_x, binned.tiles_y
     nt = tiles_x * tiles_y
     ng_glob = binned.gpairs.shape[0] // GROUP
-    n_glob = cdiv(int(binned.gmeta[0]), GROUP)
+    n_glob = cdiv(trace.read_int(binned.gmeta[0], "raster.group.globals"),
+                  GROUP)
     starts = binned.starts.long()
     rstarts = binned.rstarts.long()
     ty = torch.arange(nt, device=dev) // tiles_x
@@ -585,7 +596,7 @@ def _group_sequences(binned: BinnedTriangles) -> tuple[torch.Tensor, int]:
     f0 = starts[:nt] // GROUP
     n_fine = -(-starts[1:] // GROUP) - f0
     total = n_glob + n_row + n_fine
-    s_max = int(total.max()) if nt else 0
+    s_max = trace.read_int(total.max(), "raster.group.length") if nt else 0
     s = torch.arange(s_max, device=dev)[None, :]
     n_row, r0, f0, total = (v[:, None] for v in (n_row, r0, f0, total))
     seq = torch.where(
@@ -975,10 +986,11 @@ def rasterize_gbuf(binned: BinnedTriangles, width: int, height: int,
     transparent pass and the alpha-mask peel)."""
     if zbound is not None:
         _check_zbound(zbound, binned, width, height)
-    if binned.pairs.device.type == "cpu":
-        return rasterize_gbuf_plain(binned, width, height, msaa, zbound)
-    if binned.pairs.is_cuda:
-        return _rasterize_gbuf_cuda(binned, width, height, msaa, zbound)
+    with trace.span("vq.raster.k1", binned.pairs.device):
+        if binned.pairs.device.type == "cpu":
+            return rasterize_gbuf_plain(binned, width, height, msaa, zbound)
+        if binned.pairs.is_cuda:
+            return _rasterize_gbuf_cuda(binned, width, height, msaa, zbound)
     raise ValueError(f"rasterize_gbuf: unsupported device {binned.pairs.device}")
 
 
@@ -1285,10 +1297,11 @@ def rasterize(binned: BinnedTriangles, width: int, height: int,
     """Visibility rasterization of 16-row records -> (depth [H, W] f32 in
     [0, 1], cleared 1.0; tri_id [H, W] int32, -1 = none) for the pixel
     center, or with msaa per-sample stacks [4, H, W] each (MSAA4_OFFSETS)."""
-    if binned.pairs.device.type == "cpu":
-        return rasterize_plain(binned, width, height, msaa)
-    if binned.pairs.is_cuda:
-        return _rasterize_cuda(binned, width, height, msaa)
+    with trace.span("vq.raster.k2", binned.pairs.device):
+        if binned.pairs.device.type == "cpu":
+            return rasterize_plain(binned, width, height, msaa)
+        if binned.pairs.is_cuda:
+            return _rasterize_cuda(binned, width, height, msaa)
     raise ValueError(f"rasterize: unsupported device {binned.pairs.device}")
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import raster
 
 # reference resolutions (Renderer.cpp:520-522)
@@ -55,10 +56,11 @@ def bin_shadow_view(positions: torch.Tensor, item_of_vertex: torch.Tensor,
     """The front end of render_shadow_depth: every triangle of the index
     buffer is set up (padded, degenerate ones included; setup kills them)
     and binned into 16-row records at the default pair capacity."""
-    wvp = raster.world_view_proj(light_vp, world)
-    clip = raster.transform_clip_instanced(positions, item_of_vertex, wvp)
-    setup = raster.setup_triangles(clip[indices.long()], size, size,
-                                   tri_mask=tri_mask)
+    with trace.span("vq.raster.setup", positions.device):
+        wvp = raster.world_view_proj(light_vp, world)
+        clip = raster.transform_clip_instanced(positions, item_of_vertex, wvp)
+        setup = raster.setup_triangles(clip[indices.long()], size, size,
+                                       tri_mask=tri_mask)
     return raster.bin_triangles(setup, size, size)
 
 
@@ -161,8 +163,9 @@ def shadow_test_pcf(wpos: torch.Tensor, ndotl: torch.Tensor,
     shadow = torch.zeros_like(z)
     for dx in range(-2, 3):
         for dy in range(-2, 3):
-            off = torch.tensor([dx * texel, dy * texel], dtype=torch.float32,
-                               device=wpos.device)
+            with trace.blocking("shadow.pcf_offsets"):
+                off = torch.tensor([dx * texel, dy * texel],
+                                   dtype=torch.float32, device=wpos.device)
             closest = _fetch_nearest(shadow_map, uv + off)
             shadow = shadow + (z - bias > closest).to(torch.float32)
     shadow = shadow / 25.0
@@ -176,9 +179,11 @@ def _cube_face_uv(d: torch.Tensor):
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
     ax, ay, az = x.abs(), y.abs(), z.abs()
     i32 = dict(dtype=torch.int32, device=d.device)
-    face_x = torch.where(x >= 0, torch.tensor(0, **i32), torch.tensor(1, **i32))
-    face_y = torch.where(y >= 0, torch.tensor(2, **i32), torch.tensor(3, **i32))
-    face_z = torch.where(z >= 0, torch.tensor(4, **i32), torch.tensor(5, **i32))
+    with trace.blocking("shadow.cube_face", 6):
+        f = [torch.tensor(k, **i32) for k in range(6)]
+    face_x = torch.where(x >= 0, f[0], f[1])
+    face_y = torch.where(y >= 0, f[2], f[3])
+    face_z = torch.where(z >= 0, f[4], f[5])
     face = torch.where((ax >= ay) & (ax >= az), face_x,
                        torch.where(ay >= az, face_y, face_z))
     # +X: r=-z u=+y f=+x | -X: r=+z u=+y f=-x | +Y: r=+x u=-z f=+y
@@ -346,7 +351,8 @@ def omni_shadow_test_pcf(wpos: torch.Tensor, light_pos: torch.Tensor,
     view_dist = norm3(wpos - cam_pos)
     disk_radius = (1.0 + view_dist / far) / 8.0
     s = cube_maps.shape[-1]
-    taps = OMNI_TAPS.to(wpos.device)
+    with trace.blocking("shadow.omni_taps"):
+        taps = OMNI_TAPS.to(wpos.device)
     shadow = torch.zeros_like(dist)
     for i in range(taps.shape[0]):
         sample_vec = -(lw + taps[i] * disk_radius[..., None])

@@ -6,11 +6,15 @@ The capacity semantics are the reference's, because which pixels get the
 work decides the image: indices in raster order, `count` and `demand` in
 element units (also with block compaction), slots past `count` hold index
 0, dead lanes never write, and the adaptive threshold ladder counts
-per-block maxima. Plain torch (cumsum and index_put_), with no host sync.
+per-block maxima. Plain torch (cumsum and index_put_), with no host read;
+the threshold ladder's rungs are pageable uploads, which synchronize the
+card (trace site "sparse.thresholds").
 """
 from __future__ import annotations
 
 import torch
+
+from ..utils import trace
 
 
 def _compact(flat: torch.Tensor, cap: int) -> torch.Tensor:
@@ -76,14 +80,15 @@ def adaptive_threshold(score: torch.Tensor, thresholds, cap: int,
     where its maximum score exceeds t."""
     capb = cap // block
     counted = _block_max(score, block)
-    thr = torch.tensor(float(thresholds[-1]), dtype=torch.float32,
-                       device=score.device)
+    with trace.blocking("sparse.thresholds", len(thresholds)):
+        rungs = [torch.tensor(float(t), dtype=torch.float32,
+                              device=score.device) for t in thresholds]
+    thr = rungs[-1]
     demand = (counted > thresholds[-1]).sum(dtype=torch.int64)
-    for t in reversed(thresholds[:-1]):
+    for t, rung in zip(reversed(thresholds[:-1]), reversed(rungs[:-1])):
         c = (counted > t).sum(dtype=torch.int64)
         fits = c <= capb
-        thr = torch.where(fits, torch.tensor(float(t), dtype=torch.float32,
-                                             device=score.device), thr)
+        thr = torch.where(fits, rung, thr)
         demand = torch.where(fits, c, demand)
     return thr, demand
 

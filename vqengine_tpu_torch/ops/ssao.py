@@ -28,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _backend, ffx, sparse
 from .raster import _fma
 from .raster import div_true as _div
@@ -66,7 +67,9 @@ def tan_half(fov_y) -> float:
     reference's jnp.tan rounds it on the CPU (XLA calls libm's tanf; torch's
     tan rounds otherwise on about 4% of angles). Computed on the host: a
     card-resident fov_y costs one device sync."""
-    half = np.float32(np.float32(float(fov_y)) * np.float32(0.5))
+    with trace.blocking("ssao.tan_half"):
+        fov = float(fov_y)
+    half = np.float32(np.float32(fov) * np.float32(0.5))
     return _tanf(float(half))
 
 

@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import sparse
 from .raster import _fma, div_true, scalar_on
 from .shadow import _sqrt, dot3, norm3
@@ -460,14 +461,16 @@ def _bilinear_indices(mips, offs, t, uv, lodi):
     """Per-pixel flat-table corner indices and filter fractions at the int
     level map lodi -> (i00, i10, i01, i11, fx, fy)."""
     li = lodi.long()
-    sizes = torch.tensor([m.shape[1] for m in mips], device=uv.device)
+    with trace.blocking("texture.level_tables", 2):
+        sizes = torch.tensor([m.shape[1] for m in mips], device=uv.device)
+        offsets = torch.tensor(offs, device=uv.device)
     s = sizes[li]
     xy = uv * s.to(torch.float32)[..., None] - 0.5
     xy0 = torch.floor(xy)
     f = xy - xy0
     i0 = torch.remainder(_to_int(xy0), s[..., None])
     i1 = torch.remainder(i0 + 1, s[..., None])
-    base = torch.tensor(offs, device=uv.device)[li] + t.long() * (s * s)
+    base = offsets[li] + t.long() * (s * s)
     x0i, y0i, x1i, y1i = i0[..., 0], i0[..., 1], i1[..., 0], i1[..., 1]
     return (base + y0i * s + x0i, base + y0i * s + x1i,
             base + y1i * s + x0i, base + y1i * s + x1i,

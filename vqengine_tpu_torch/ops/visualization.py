@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .colorspace import powf
 from .ffx import _f32
 from .raster import div_true
@@ -110,7 +111,8 @@ def magnifier(img: torch.Tensor, center_uv=(0.5, 0.5), radius: float = 0.15,
     if record is not None:
         record.update(tx=tx.expand(h, w), ty=ty.expand(h, w),
                       inside=inside, ring=ring)
-    border = torch.tensor(border_color, dtype=torch.float32, device=dev)
+    with trace.blocking("visualization.color"):
+        border = torch.tensor(border_color, dtype=torch.float32, device=dev)
     return torch.where(ring[..., None], border, out)
 
 
@@ -129,5 +131,6 @@ def outline(img: torch.Tensor, object_id: torch.Tensor, selected: int,
     rim = grown & ~mask
     if record is not None:
         record["rim"] = rim
-    c = torch.tensor(color, dtype=torch.float32, device=img.device)
+    with trace.blocking("visualization.color"):
+        c = torch.tensor(color, dtype=torch.float32, device=img.device)
     return torch.where(rim[..., None], c, img)

@@ -34,6 +34,7 @@ from ..ops import ssao as ssao_ops
 from ..ops import ssr as ssr_ops
 from ..ops import texture as tex_ops
 from ..ops import postprocess as pp
+from ..utils import trace
 
 # capacity of the MSAA edge compaction: frame pixels / MSAA_EDGE_CAP_FRAC,
 # rounded up to a multiple of 4096 (at least 4096)
@@ -339,9 +340,13 @@ class FrameConstants:
 
 def frame_constants_from_numpy(fields: dict,
                                device: torch.device) -> FrameConstants:
-    """FrameConstants from numpy leaves named as the reference's fields."""
-    return FrameConstants(**{f.name: _tensor(fields[f.name], device)
-                             for f in dataclasses.fields(FrameConstants)})
+    """FrameConstants from numpy leaves named as the reference's fields.
+    Each non-empty leaf is a pageable upload, which synchronizes the card."""
+    names = [f.name for f in dataclasses.fields(FrameConstants)]
+    with trace.blocking("frame.upload",
+                        sum(1 for k in names if np.size(fields[k]))):
+        return FrameConstants(**{k: _tensor(fields[k], device)
+                                 for k in names})
 
 
 def _unproject(ndc_x: torch.Tensor, ndc_y: torch.Tensor, depth: torch.Tensor,
@@ -439,36 +444,39 @@ def geometry_setup_gbuf(scene: DeviceScene, consts: FrameConstants,
     where the scene has morph targets) + patch amplification + triangle
     setup + packed G-buffer attributes -> (TriangleSetup, extra record
     columns)."""
-    visible, lod = culling.cull_and_select_lod(
-        consts.world, scene.aabb_center, scene.aabb_extent,
-        consts.frustum_planes, consts.view_proj, scene.item_num_lods)
-    tri_mask = culling.triangle_mask_from_items(
-        scene.tri_item, scene.tri_lod, visible, lod)
-    wvp = raster.world_view_proj(consts.view_proj, consts.world)
-    tl = scene.num_tris_live
-    tri_item = scene.tri_item[:tl]
-    if scene.corner_morph_mid is not None:
-        # the per-item factor from the same projected area the LOD uses
-        wc, we = culling.world_aabbs(consts.world, scene.aabb_center,
-                                     scene.aabb_extent)
-        area = culling.projected_bb_area(wc, we, consts.view_proj)
-        morph_w = culling.tessellation_morph_factor(lod, area,
-                                                    scene.item_num_lods)
-        clip_c = raster.transform_clip_corners_morph(
-            scene.corner_positions, scene.corner_morph_mid, tri_item, wvp,
-            morph_w)
-    else:
-        clip_c = raster.transform_clip_corners(scene.corner_positions,
-                                               tri_item, wvp)
-    clip_c, corner_n, corner_t, corner_u, tri_item, tri_mask_c = \
-        append_amplified_patches(scene, consts, visible, wvp, clip_c,
-                                 scene.corner_normals, scene.corner_tangents,
-                                 scene.corner_uvs, tri_item, tri_mask[:tl])
-    setup = raster.setup_triangles(clip_c, width, height, tri_mask=tri_mask_c)
-    ti = tri_item.long()
-    extra = raster.pack_gbuf_extra_corners(
-        corner_n, corner_t, corner_u, tri_item, consts.normal_mats,
-        scene.item_material[ti], scene.item_object[ti])
+    with trace.span("vq.raster.setup", consts.view_proj.device):
+        visible, lod = culling.cull_and_select_lod(
+            consts.world, scene.aabb_center, scene.aabb_extent,
+            consts.frustum_planes, consts.view_proj, scene.item_num_lods)
+        tri_mask = culling.triangle_mask_from_items(
+            scene.tri_item, scene.tri_lod, visible, lod)
+        wvp = raster.world_view_proj(consts.view_proj, consts.world)
+        tl = scene.num_tris_live
+        tri_item = scene.tri_item[:tl]
+        if scene.corner_morph_mid is not None:
+            # the per-item factor from the same projected area the LOD uses
+            wc, we = culling.world_aabbs(consts.world, scene.aabb_center,
+                                         scene.aabb_extent)
+            area = culling.projected_bb_area(wc, we, consts.view_proj)
+            morph_w = culling.tessellation_morph_factor(lod, area,
+                                                        scene.item_num_lods)
+            clip_c = raster.transform_clip_corners_morph(
+                scene.corner_positions, scene.corner_morph_mid, tri_item, wvp,
+                morph_w)
+        else:
+            clip_c = raster.transform_clip_corners(scene.corner_positions,
+                                                   tri_item, wvp)
+        clip_c, corner_n, corner_t, corner_u, tri_item, tri_mask_c = \
+            append_amplified_patches(scene, consts, visible, wvp, clip_c,
+                                     scene.corner_normals,
+                                     scene.corner_tangents, scene.corner_uvs,
+                                     tri_item, tri_mask[:tl])
+        setup = raster.setup_triangles(clip_c, width, height,
+                                       tri_mask=tri_mask_c)
+        ti = tri_item.long()
+        extra = raster.pack_gbuf_extra_corners(
+            corner_n, corner_t, corner_u, tri_item, consts.normal_mats,
+            scene.item_material[ti], scene.item_object[ti])
     return setup, extra
 
 
@@ -1431,108 +1439,135 @@ def render_forward(scene: DeviceScene, consts: FrameConstants,
     # with textures
     alpha_test = enable_alpha_mask and textures is not None
     tel: dict = {}
-    geo = geometry_pass(scene, consts, width, height, msaa=msaa,
-                        return_binned=alpha_test,
-                        pair_capacity=pair_capacity, tel=tel)
-    depth, tri_id, attrs, mask, coverage = geo[:5]
-    # stochastic trilinear: a per-pixel R2-dithered mip pick
-    mip_jit = (tex_ops.mip_jitter(height, width, device=depth.device)
-               if textures is not None else None)
-    mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"],
-                        uv=attrs["uv"], wtan=attrs["wtan"], textures=textures,
-                        aniso_taps=aniso_taps, slots_used=slots_used,
-                        mip_jitter=mip_jit, telemetry=tel)
-    n = mat["normal"]
+    dev = consts.view_proj.device
+    with trace.span("vq.pass.geometry", dev):
+        geo = geometry_pass(scene, consts, width, height, msaa=msaa,
+                            return_binned=alpha_test,
+                            pair_capacity=pair_capacity, tel=tel)
+        depth, tri_id, attrs, mask, coverage = geo[:5]
+    with trace.span("vq.pass.material", dev):
+        # stochastic trilinear: a per-pixel R2-dithered mip pick
+        mip_jit = (tex_ops.mip_jitter(height, width, device=depth.device)
+                   if textures is not None else None)
+        mat = material_pass(unit3(attrs["wnrm"]), attrs["mrow"], attrs["ids"],
+                            uv=attrs["uv"], wtan=attrs["wtan"],
+                            textures=textures, aniso_taps=aniso_taps,
+                            slots_used=slots_used, mip_jitter=mip_jit,
+                            telemetry=tel)
+        n = mat["normal"]
     if alpha_test:
-        depth, tri_id, mask, attrs["wpos"], n, mat, coverage = _alpha_mask_peel(
-            scene, consts, geo[5], width, height, depth, tri_id, mask,
-            attrs["wpos"], n, mat, coverage, textures=textures,
-            aniso_taps=aniso_taps, slots_used=slots_used, mip_jit=mip_jit)
-    th = (ssao_ops.tan_half(consts.proj_params[2])
-          if enable_ssao or enable_ssr else None)
-    d_h = pool2(depth) if enable_ssao or enable_ssr else None
-    ao_map = None
-    if enable_ssao:
-        ao_map = ssao_pass(consts, depth, n, ssao_quality, d_h=d_h,
-                           telemetry=tel, tan_half_fov=th)
+        with trace.span("vq.pass.alpha_peel", dev):
+            depth, tri_id, mask, attrs["wpos"], n, mat, coverage = \
+                _alpha_mask_peel(scene, consts, geo[5], width, height, depth,
+                                 tri_id, mask, attrs["wpos"], n, mat,
+                                 coverage, textures=textures,
+                                 aniso_taps=aniso_taps, slots_used=slots_used,
+                                 mip_jit=mip_jit)
+    th = d_h = ao_map = None
+    if enable_ssao or enable_ssr:
+        with trace.span("vq.pass.ssao", dev):
+            th = ssao_ops.tan_half(consts.proj_params[2])
+            d_h = pool2(depth)
+            if enable_ssao:
+                ao_map = ssao_pass(consts, depth, n, ssao_quality, d_h=d_h,
+                                   telemetry=tel, tan_half_fov=th)
     motion = None
     if enable_motion_vectors:
-        # post-peel item ids: a pixel re-resolved past a discarded cutout
-        # carries the revealed surface's item
-        motion = motion_vectors(scene, consts, attrs["wpos"], tri_id, mask,
-                                item_id=mat["item_id"].to(torch.int32),
-                                dynamic_item_ids=dynamic_item_ids)
+        with trace.span("vq.pass.motion", dev):
+            # post-peel item ids: a pixel re-resolved past a discarded
+            # cutout carries the revealed surface's item
+            motion = motion_vectors(scene, consts, attrs["wpos"], tri_id,
+                                    mask,
+                                    item_id=mat["item_id"].to(torch.int32),
+                                    dynamic_item_ids=dynamic_item_ids)
     spot_vis = point_vis = dir_vis = None
     if enable_shadows:
-        spot_vis, point_vis, dir_vis = shadow_pass(
-            scene, consts, attrs["wpos"], n, shadow_dims, shadow_filter,
-            shadow_maps=shadow_maps)
-    ao = consts.ambient_factor * mat["local_ao"]
-    if ao_map is not None:
-        ao = ao * ao_map          # SSAO multiplies the ambient term
-    env_illum = environment_term(consts, env, attrs["wpos"], n, mat)
-    hdr = shading.shade_forward(
-        world_pos=attrs["wpos"], normal=n, albedo=mat["albedo"],
-        roughness=mat["roughness"], metalness=mat["metalness"],
-        emissive=mat["emissive"], ao=ao, camera_pos=consts.camera_pos,
-        point_lights=consts.point_lights, spot_lights=consts.spot_lights,
-        spot_extra=consts.spot_extra, directional=consts.directional,
-        point_casters=consts.point_casters if enable_shadows else None,
-        point_shadow=point_vis,
-        spot_casters=consts.spot_casters if enable_shadows else None,
-        spot_caster_extra=consts.spot_caster_extra if enable_shadows else None,
-        spot_shadow=spot_vis, dir_shadow=dir_vis, env_illumination=env_illum)
-    if env is not None:
-        background = sky_background(consts, env, width, height)
-    else:
-        background = consts.clear_color.expand(hdr.shape)
-    if coverage is not None:
-        # covered-sample share: silhouettes blend with the background; at
-        # edges between two surfaces the resolve splits the covered samples
-        covm = coverage.mean(dim=0)
-        if msaa_edge_resolve:
+        with trace.span("vq.pass.shadows", dev):
+            spot_vis, point_vis, dir_vis = shadow_pass(
+                scene, consts, attrs["wpos"], n, shadow_dims, shadow_filter,
+                shadow_maps=shadow_maps)
+    with trace.span("vq.pass.environment", dev):
+        env_illum = environment_term(consts, env, attrs["wpos"], n, mat)
+    with trace.span("vq.pass.shade", dev):
+        ao = consts.ambient_factor * mat["local_ao"]
+        if ao_map is not None:
+            ao = ao * ao_map          # SSAO multiplies the ambient term
+        hdr = shading.shade_forward(
+            world_pos=attrs["wpos"], normal=n, albedo=mat["albedo"],
+            roughness=mat["roughness"], metalness=mat["metalness"],
+            emissive=mat["emissive"], ao=ao, camera_pos=consts.camera_pos,
+            point_lights=consts.point_lights, spot_lights=consts.spot_lights,
+            spot_extra=consts.spot_extra, directional=consts.directional,
+            point_casters=consts.point_casters if enable_shadows else None,
+            point_shadow=point_vis,
+            spot_casters=consts.spot_casters if enable_shadows else None,
+            spot_caster_extra=(consts.spot_caster_extra if enable_shadows
+                               else None),
+            spot_shadow=spot_vis, dir_shadow=dir_vis,
+            env_illumination=env_illum)
+    secondary = None
+    if coverage is not None and msaa_edge_resolve:
+        # at edges between two surfaces the resolve splits the covered
+        # samples with the secondary surface
+        with trace.span("vq.pass.edge_resolve", dev):
             if msaa_edge_resolve == "shade":
-                w_sec, sec_rgb = _msaa_edge_secondary(
+                secondary = _msaa_edge_secondary(
                     scene, consts, attrs, tri_id, depth, mask, coverage,
                     spot_vis, point_vis, dir_vis, width, height,
                     enable_shadows, telemetry=tel, env=env, ao_map=ao_map,
                     textures=textures, aniso_taps=aniso_taps,
                     slots_used=slots_used, mip_jit=mip_jit)
             else:
-                w_sec, sec_rgb = _msaa_edge_neighbor(
+                secondary = _msaa_edge_neighbor(
                     attrs, tri_id, depth, mask, coverage, hdr, width, height,
                     telemetry=tel)
-            w_pri = torch.clamp(covm - w_sec, min=0.0)
-            hdr = (hdr * w_pri[..., None] + sec_rgb
-                   + background * (1.0 - covm)[..., None])
+    with trace.span("vq.pass.sky", dev):
+        if env is not None:
+            background = sky_background(consts, env, width, height)
         else:
-            hdr = hdr * covm[..., None] + background * (1.0 - covm[..., None])
-        hdr = torch.where((mask | (covm > 0))[..., None], hdr, background)
-    else:
-        hdr = torch.where(mask[..., None], hdr, background)
+            background = consts.clear_color.expand(hdr.shape)
+        if coverage is not None:
+            # covered-sample share: silhouettes blend with the background
+            covm = coverage.mean(dim=0)
+            if secondary is not None:
+                w_sec, sec_rgb = secondary
+                w_pri = torch.clamp(covm - w_sec, min=0.0)
+                hdr = (hdr * w_pri[..., None] + sec_rgb
+                       + background * (1.0 - covm)[..., None])
+            else:
+                hdr = (hdr * covm[..., None]
+                       + background * (1.0 - covm[..., None]))
+            hdr = torch.where((mask | (covm > 0))[..., None], hdr, background)
+        else:
+            hdr = torch.where(mask[..., None], hdr, background)
     new_ssr_history = None
     if enable_ssr:
-        hdr, new_ssr_history = ssr_pass(consts, hdr, depth, n, mat,
-                                        attrs["wpos"], mask, motion,
-                                        ssr_history, d_h=d_h, telemetry=tel,
-                                        tan_half_fov=th)
+        with trace.span("vq.pass.ssr", dev):
+            hdr, new_ssr_history = ssr_pass(consts, hdr, depth, n, mat,
+                                            attrs["wpos"], mask, motion,
+                                            ssr_history, d_h=d_h,
+                                            telemetry=tel, tan_half_fov=th)
     if scene_transparent is not None and scene_transparent.num_tris_live > 0:
-        hdr = transparent_pass(scene_transparent, consts, hdr, depth,
-                               width, height, env=env, textures=textures,
-                               slots_used=slots_used)
-    ldr = pp.tonemap(hdr, output_display_curve, apply_gamma=apply_gamma)
-    # the post chain's tail (SceneRendering.cpp:2507-2788): CAS, then the
-    # FSR1 upscale when rendering below the display size (the HDR path
-    # skips FSR, as in the reference)
-    if cas_sharpness is not None:
-        ldr = ffx.cas(ldr, cas_sharpness)
-    if (out_width is not None and out_height is not None
-            and (out_width != width or out_height != height)
-            and output_display_curve != cs.DISPLAY_CURVE_ST2084):
-        ldr = ffx.fsr1(ldr, out_height, out_width)
+        with trace.span("vq.pass.transparent", dev):
+            hdr = transparent_pass(scene_transparent, consts, hdr, depth,
+                                   width, height, env=env, textures=textures,
+                                   slots_used=slots_used)
+    with trace.span("vq.pass.tonemap", dev):
+        ldr = pp.tonemap(hdr, output_display_curve, apply_gamma=apply_gamma)
+    with trace.span("vq.pass.tail", dev):
+        # the post chain's tail (SceneRendering.cpp:2507-2788): CAS, then
+        # the FSR1 upscale when rendering below the display size (the HDR
+        # path skips FSR, as in the reference)
+        if cas_sharpness is not None:
+            ldr = ffx.cas(ldr, cas_sharpness)
+        if (out_width is not None and out_height is not None
+                and (out_width != width or out_height != height)
+                and output_display_curve != cs.DISPLAY_CURVE_ST2084):
+            ldr = ffx.fsr1(ldr, out_height, out_width)
+        object_id = torch.where(mask, mat["object_id"],
+                                torch.full_like(mat["object_id"], -1))
     out = {"ldr": ldr, "hdr": hdr, "depth": depth, "tri_id": tri_id,
-           "object_id": torch.where(mask, mat["object_id"],
-                                    torch.full_like(mat["object_id"], -1)),
+           "object_id": object_id,
            "overflow": attrs["overflow"], "pair_demand": attrs["pair_demand"],
            "saturation": tel}
     if ao_map is not None:

@@ -25,6 +25,7 @@ from ..scene.light import (ELightType, NUM_LIGHTS_POINT, NUM_LIGHTS_SPOT,
                            pack_point_lights, pack_spot_extra,
                            pack_spot_lights)
 from ..utils import math3d as m3
+from ..utils import trace
 from . import graph
 from .scene_buffers import SceneBuffers, split_transparent
 
@@ -125,10 +126,12 @@ def frame_constants_numpy(buffers: SceneBuffers, camera, lights,
 
 @dataclass
 class FRenderStats:
-    """Reference Renderer.h:85-94."""
+    """Reference Renderer.h:85-94. last_frame_ms: on a CUDA device the
+    device time of the engine's last finished tick (its CUDA event pair,
+    read once the device has passed it); on the CPU the host time of the
+    last render."""
     num_frames_rendered: int = 0
     num_draws: int = 0
-    num_dispatches: int = 0
     last_frame_ms: float = 0.0
 
 
@@ -267,28 +270,34 @@ class VQRendererTorch:
             rw, rh = width, height
         curve = cs.DISPLAY_CURVE_ST2084 if hdr10 else cs.DISPLAY_CURVE_SRGB
         t0 = time.perf_counter()
-        out = graph.render_forward(self.scene, consts, rw, rh,
-                                   output_display_curve=curve,
-                                   out_width=width, out_height=height,
-                                   cas_sharpness=cas_sharpness,
-                                   pair_capacity=self.pair_bucket,
-                                   scene_transparent=self.scene_t, **flags)
+        with trace.span("vq.render", self.device):
+            out = graph.render_forward(self.scene, consts, rw, rh,
+                                       output_display_curve=curve,
+                                       out_width=width, out_height=height,
+                                       cas_sharpness=cas_sharpness,
+                                       pair_capacity=self.pair_bucket,
+                                       scene_transparent=self.scene_t,
+                                       **flags)
         if readback:
             self._update_pair_bucket(out)
         self.stats.num_frames_rendered += 1
         self.stats.num_draws = self._num_tris
-        self.stats.last_frame_ms = (time.perf_counter() - t0) * 1e3
+        if self.device.type != "cuda":
+            self.stats.last_frame_ms = (time.perf_counter() - t0) * 1e3
         return out
 
     def _update_pair_bucket(self, out: dict) -> None:
         """Sticky upward; an overflowing bucket resets to the safe default
         and regrows from fresh demand (reference: _update_pair_bucket)."""
-        if self.pair_bucket is not None and int(out["overflow"].sum()) > 0:
+        if (self.pair_bucket is not None
+                and trace.read_int(out["overflow"].sum(),
+                                   "renderer.overflow") > 0):
             self.pair_bucket = None
             self._pair_demand_max = 0
             return
-        self._pair_demand_max = max(self._pair_demand_max,
-                                    int(out["pair_demand"]))
+        self._pair_demand_max = max(
+            self._pair_demand_max,
+            trace.read_int(out["pair_demand"], "renderer.pair_demand"))
         t = self.scene.num_tris_live
         bucket = raster.pair_cap_bucket(self._pair_demand_max, t)
         if bucket >= raster.default_pair_cap(t):

@@ -455,7 +455,7 @@ class _ThreadGroup:
 
     def __init__(self, n: int):
         self.n = n
-        self.barrier = threading.Barrier(n)
+        self.barrier = threading.Barrier(n, timeout=60)
         self.slots = [None] * n
 
     def all_gather(self, i: int, x: torch.Tensor) -> torch.Tensor:
@@ -500,6 +500,7 @@ def _run_ranks(dp: int, sp: int, fn) -> list:
         t.start()
     for t in threads:
         t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads), "a rank hung"
     assert not errors, errors
     return out
 
